@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-`csrc/*.cu` compile with `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with `ctypes`. The build runs at
-first use, is cached under `_build/` by a hash of the sources and flags,
-and is never attempted at import time: the CPU tests import every module
-of the package on machines with no `nvcc`.
+`csrc/*.cu` compile with `nvcc` for Hopper (`sm_90a`), one `nvcc` process
+per source, all started together, and link into one shared library with a
+plain C interface, loaded with `ctypes`. The build runs at first use, is
+cached under `_build/` by a hash of the sources and flags, and is never
+attempted at import time: the CPU tests import every module of the
+package on machines with no `nvcc`.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception,
@@ -32,8 +33,7 @@ _BUILD_DIR = os.path.join(_HERE, "_build")
 # and the forward-sum loss to about 1e-5, both of which need precise
 # expf/log1pf and IEEE adds.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -43,6 +43,9 @@ _SIGNATURES = {
                    _P, _I32, _I32, _I32, ctypes.c_float, _P],
     "forward_sum_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
                                  _I32, _I32, _P],
+    "forward_sum_grad_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
+                                _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                                _I32, _P],
 }
 
 _LOCK = threading.Lock()
@@ -83,6 +86,41 @@ def _tag(sources: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc_jobs(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands at once, wait for all of them, and return
+    their output; raise on the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    results = [(cmd, *proc.communicate(), proc.returncode)
+               for cmd, proc in zip(cmds, procs)]
+    for cmd, out, err, code in results:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}"
+                               f"\n{out}{err}")
+    return "".join(out + err for _, out, err, _ in results)
+
+
+def _compile(sources: list[str], so: str) -> str:
+    """Compile each .cu into an object, one nvcc per source, all at once;
+    link them into `so` and return nvcc's output. The work happens in a
+    temporary directory per process and the library is installed
+    atomically, so processes building at once never load a half-written
+    library."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        cus = [src for src in sources if src.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in cus]
+        log = _nvcc_jobs([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                          for src, obj in zip(cus, objs)])
+        out = os.path.join(tmp, os.path.basename(so))
+        log += _nvcc_jobs([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", out,
+                            *objs]])
+        os.replace(out, so)
+    return log
+
+
 def load_library() -> ctypes.CDLL:
     """Compile the kernels if needed, load them and declare their C
     signatures. Raises RuntimeError when nvcc fails."""
@@ -95,26 +133,9 @@ def load_library() -> ctypes.CDLL:
         so = os.path.join(_BUILD_DIR, f"libaligner_kernels_{_tag(sources)}.so")
         BUILD_INFO.update(seconds=0.0, log="")
         if not os.path.exists(so):
-            # A unique temporary per process, installed atomically, so
-            # processes building at once never load a half-written
-            # library.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            try:
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       *[s for s in sources if s.endswith(".cu")]]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                        f"\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                              log=proc.stdout + proc.stderr)
+            log = _compile(sources, so)
+            BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log)
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

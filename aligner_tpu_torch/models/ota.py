@@ -8,13 +8,15 @@ Implements "One TTS Alignment To Rule Them All" (arXiv 2108.10447):
                                                v
                         log-attention (+ beta-binomial prior)
                          |                          |
-      forward-sum NLL (kernel H2, forward only)   MAS hard path (kernel H1)
-                         |                          |
+   forward-sum NLL (kernels H2 + H3 backward)   MAS hard path (kernel H1,
+                         |                       outside the autograd graph)
                          +-- bin loss: -sum hard * log_attn / frames --+
 
-On a CUDA device both dynamic programmes run as this package's kernels;
-on the CPU they run as their plain PyTorch versions. The pause branch and
-bfloat16 compute are not ported yet and raise.
+On a CUDA device the dynamic programmes run as this package's kernels;
+on the CPU they run as their plain PyTorch versions. Gradients flow
+through the forward-sum loss, the bin loss and the reconstruction
+auxiliary, as in the JAX model. The pause branch and bfloat16 compute are
+not ported yet and raise.
 """
 from __future__ import annotations
 

@@ -1,10 +1,16 @@
-"""Forward-sum alpha sweep on the card (kernel H2, `csrc/forward_sum.cu`)
-and its plain PyTorch version.
+"""Forward-sum sweeps on the card and their plain PyTorch versions
+(`csrc/forward_sum.cu`):
 
-Counterpart of forward_sum_alpha_pallas (aligner_tpu/ops/
-forward_sum_pallas.py). A CPU tensor takes `alpha_plain`, the port of
-`_alpha_scan` (aligner_tpu/ops/forward_sum.py); a CUDA tensor launches the
-kernel or raises.
+* kernel H2, the alpha sweep, counterpart of forward_sum_alpha_pallas
+  (aligner_tpu/ops/forward_sum_pallas.py); plain version `alpha_plain`,
+  the port of `_alpha_scan` (aligner_tpu/ops/forward_sum.py);
+* kernel H3, the beta sweep that emits the posterior gamma (the loss
+  gradient up to its sign), counterpart of forward_sum_grad_pallas;
+  plain version `gamma_plain`, the recursion of `_beta_scan` in the
+  message form of `_beta_grad_kernel`.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from .. import _build
 
 NEG = -1e15
 KERNEL = "forward_sum_alpha_kernel"
+GRAD_KERNEL = "forward_sum_grad_kernel"
 
 
 def alpha_plain(lp_tm: torch.Tensor, t_y: torch.Tensor) -> torch.Tensor:
@@ -38,21 +45,29 @@ def alpha_plain(lp_tm: torch.Tensor, t_y: torch.Tensor) -> torch.Tensor:
     return alphas
 
 
+def _check_lattice(lp_tm: torch.Tensor, t, name: str) -> torch.Tensor:
+    """Validate a float32 [T_y, B, T_x] lattice on the CPU or CUDA and
+    return the per-item lengths `t` as int32 [B] on its device."""
+    if lp_tm.ndim != 3 or lp_tm.dtype != torch.float32:
+        raise ValueError(f"expected a float32 [T_y, B, T_x] lattice, got "
+                         f"{lp_tm.dtype} {tuple(lp_tm.shape)}")
+    if lp_tm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"forward-sum runs on a CPU or CUDA tensor, got "
+                         f"{lp_tm.device}")
+    B = lp_tm.shape[1]
+    t = torch.as_tensor(t).to(device=lp_tm.device, dtype=torch.int32)
+    if t.shape != (B,):
+        raise ValueError(f"{name} must be [{B}], got {tuple(t.shape)}")
+    return t
+
+
 def forward_sum_alpha(lp_tm: torch.Tensor, t_y):
     """Alpha lattice [T_y, B, T_x] and final column [B, T_x].
 
     lp_tm: f32 [T_y, B, T_x] (any strides), NEG-masked at x >= t_x;
     t_y: [B] int."""
-    if lp_tm.ndim != 3 or lp_tm.dtype != torch.float32:
-        raise ValueError(f"expected a float32 [T_y, B, T_x] lattice, got "
-                         f"{lp_tm.dtype} {tuple(lp_tm.shape)}")
+    t_y = _check_lattice(lp_tm, t_y, "t_y")
     T_y, B, T_x = lp_tm.shape
-    t_y = torch.as_tensor(t_y).to(device=lp_tm.device, dtype=torch.int32)
-    if t_y.shape != (B,):
-        raise ValueError(f"t_y must be [{B}], got {tuple(t_y.shape)}")
-    if lp_tm.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"forward-sum runs on a CPU or CUDA tensor, got "
-                         f"{lp_tm.device}")
     if lp_tm.numel() == 0:
         return (torch.empty_like(lp_tm),
                 torch.full((B, T_x), NEG, device=lp_tm.device))
@@ -72,3 +87,80 @@ def forward_sum_alpha(lp_tm: torch.Tensor, t_y):
     _build.check(lib, err, KERNEL)
     _build.LAUNCHES[KERNEL] += 1
     return alphas, final
+
+
+def gamma_plain(lp_tm: torch.Tensor, alphas: torch.Tensor,
+                total: torch.Tensor, t_x: torch.Tensor,
+                t_y: torch.Tensor) -> torch.Tensor:
+    """Posterior occupancy gamma = exp(alpha + beta - total), [T_y, B, T_x].
+
+    lp_tm: f32 [T_y, B, T_x], NEG-masked at x >= t_x; alphas: its alpha
+    lattice; total: [B] log-marginal, already 0 for invalid items (else
+    the exp overflows); t_x, t_y: [B]. A reverse sweep over the message
+    M[y] = lp[y] + beta[y]: beta[y] = logaddexp(M[y+1, x], M[y+1, x+1]),
+    the advance arm NEG at x == t_x - 1 and x == T_x - 1; beta = 0 at
+    (t_x - 1, t_y - 1) and NEG elsewhere on frame t_y - 1; frames past
+    t_y pass the message through. Gamma is exactly 0 off the live cells
+    (y < t_y and lp > NEG/2). The result is a [T_y, B, T_x] view of a
+    [B, T_y, T_x] tensor, the layout the kernel writes."""
+    T_y, B, T_x = lp_tm.shape
+    dev = lp_tm.device
+    xs = torch.arange(T_x, device=dev)[None, :]
+    tx = t_x.to(dev)[:, None]
+    ty = t_y.to(dev)[:, None]
+    x_is_last = xs == tx - 1
+    no_advance = x_is_last | (xs == T_x - 1)
+    end_col = torch.where(x_is_last, 0.0, NEG).to(lp_tm.dtype)
+    tot = total.to(dev)[:, None]
+    neg_col = torch.full((B, 1), NEG, dtype=lp_tm.dtype, device=dev)
+    m_next = torch.full((B, T_x), NEG, dtype=lp_tm.dtype, device=dev)
+    gamma = torch.empty((B, T_y, T_x), dtype=lp_tm.dtype, device=dev)
+    for y in range(T_y - 1, -1, -1):
+        lp = lp_tm[y]
+        shift = torch.where(no_advance, NEG,
+                            torch.cat([m_next[:, 1:], neg_col], dim=1))
+        beta = torch.logaddexp(m_next, shift)
+        beta = torch.where(ty - 1 == y, end_col, beta)
+        live = (ty > y) & (lp > 0.5 * NEG)
+        gamma[:, y] = torch.where(live, torch.exp(alphas[y] + beta - tot),
+                                  0.0)
+        m = lp + beta
+        m = torch.where(m > 0.5 * NEG, m, NEG)
+        m_next = torch.where(ty > y, m, m_next)
+    return gamma.transpose(0, 1)
+
+
+def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
+                     total: torch.Tensor, t_x, t_y) -> torch.Tensor:
+    """Posterior occupancy gamma [T_y, B, T_x] (a view of a [B, T_y, T_x]
+    tensor): see `gamma_plain` for the contract. lp_tm and alphas are
+    read through their strides; total is f32 [B]."""
+    t_x = _check_lattice(lp_tm, t_x, "t_x")
+    t_y = _check_lattice(lp_tm, t_y, "t_y")
+    T_y, B, T_x = lp_tm.shape
+    if alphas.shape != lp_tm.shape or alphas.dtype != torch.float32 \
+            or alphas.device != lp_tm.device:
+        raise ValueError(f"alphas must be float32 {tuple(lp_tm.shape)} on "
+                         f"{lp_tm.device}, got {alphas.dtype} "
+                         f"{tuple(alphas.shape)} on {alphas.device}")
+    total = torch.as_tensor(total).to(device=lp_tm.device,
+                                      dtype=torch.float32)
+    if total.shape != (B,):
+        raise ValueError(f"total must be [{B}], got {tuple(total.shape)}")
+    if lp_tm.device.type == "cpu":
+        return gamma_plain(lp_tm, alphas, total, t_x, t_y)
+    gamma = torch.empty((B, T_y, T_x), dtype=torch.float32,
+                        device=lp_tm.device).transpose(0, 1)
+    if lp_tm.numel() == 0:
+        return gamma
+    total, t_x, t_y = total.contiguous(), t_x.contiguous(), t_y.contiguous()
+    lib = _build.load_library()
+    with torch.cuda.device(lp_tm.device):
+        err = lib.forward_sum_grad_launch(
+            lp_tm.data_ptr(), *lp_tm.stride(), alphas.data_ptr(),
+            *alphas.stride(), total.data_ptr(), t_x.data_ptr(),
+            t_y.data_ptr(), gamma.data_ptr(), *gamma.stride(), B, T_x, T_y,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, GRAD_KERNEL)
+    _build.LAUNCHES[GRAD_KERNEL] += 1
+    return gamma

@@ -1,0 +1,226 @@
+"""Training step for the OTA aligner (port of aligner_tpu/train/step.py).
+
+One step runs the model forward (encoders, lattice, forward-sum loss,
+MAS binarisation, bin loss), the backward (the forward-sum gradient is
+kernel H3 on a CUDA device) and the optimizer update, eagerly. The
+optimizer is the JAX package's optax chain written out in PyTorch:
+global-norm clipping by optax's formula, then `torch.optim.AdamW`, whose
+update (decoupled decay applied to the pre-update parameters, then the
+bias-corrected moments) is optax's `adamw` with no mask.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Callable
+from typing import Any
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class LRSchedule:
+    """Learning rate by optimizer step, with the values of the optax
+    schedule that aligner_tpu's make_lr_schedule builds (see there)."""
+    learning_rate: float
+    warmup_steps: int = 0
+    decay_steps: int | None = None
+    schedule: str = "constant"
+    final_scale: float = 0.1
+
+    def __call__(self, step: int) -> float:
+        lr = self.learning_rate
+        if self.schedule == "constant":
+            if self.warmup_steps <= 0:
+                return lr
+            return _linear(0.0, lr, self.warmup_steps, step)
+        # optax.warmup_cosine_decay_schedule: decay_steps counts the
+        # warm-up, and the cosine runs from the end of the warm-up.
+        warmup = max(self.warmup_steps, 1)
+        decay = max(self.decay_steps, self.warmup_steps + 1) - warmup
+        if step < warmup:
+            return _linear(0.0, lr, warmup, step)
+        end = self.final_scale * lr
+        alpha = 0.0 if lr == 0.0 else end / lr
+        count = min(step - warmup, decay)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay))
+        return lr * ((1.0 - alpha) * cosine + alpha)
+
+
+def _linear(init: float, end: float, steps: int, step: int) -> float:
+    """optax.linear_schedule(init, end, steps) at `step`."""
+    frac = 1.0 - min(max(step, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def make_lr_schedule(learning_rate: float, *, warmup_steps: int = 0,
+                     decay_steps: int | None = None,
+                     schedule: str = "constant",
+                     final_scale: float = 0.1) -> LRSchedule:
+    """Learning-rate schedule factory.
+
+    schedule: "constant" (optionally with linear warmup) or "cosine"
+    (linear warmup -> cosine decay to final_scale * learning_rate over
+    decay_steps, which include the warm-up). Returns a callable
+    step -> lr, read at the step count before the update.
+    """
+    if schedule == "cosine":
+        if decay_steps is None:
+            raise ValueError("cosine schedule requires decay_steps")
+        if max(decay_steps, warmup_steps + 1) - max(warmup_steps, 1) <= 0:
+            raise ValueError("cosine schedule requires decay_steps beyond "
+                             f"the warm-up, got {decay_steps}")
+    elif schedule != "constant":
+        raise ValueError(f"unknown schedule: {schedule!r}")
+    return LRSchedule(learning_rate, warmup_steps, decay_steps, schedule,
+                      final_scale)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g * max_norm / |g| (as
+    (g / |g|) * max_norm) when the global norm |g| >= max_norm. Unlike
+    torch.nn.utils.clip_grad_norm_ no epsilon is added. Stays on the
+    device: nothing is read back to the host."""
+    if not grads:
+        return
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = g_norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, the count of updates applied and an
+    optional learning-rate schedule (flax's TrainState, in torch: the
+    parameters live in the model and are updated in place)."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    schedule: Callable[[int], float] | None = None
+    grad_clip_norm: float | None = None
+
+    def apply_gradients(self) -> None:
+        """One update from the gradients on the model's parameters: clip,
+        AdamW at schedule(step), then step += 1 (optax reads its count
+        before incrementing it)."""
+        if self.grad_clip_norm is not None:
+            clip_by_global_norm_([p.grad for p in self.model.parameters()
+                                  if p.grad is not None],
+                                 self.grad_clip_norm)
+        if self.schedule is not None:
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+
+
+def create_train_state(model: nn.Module, learning_rate=1e-4,
+                       weight_decay: float = 1e-6,
+                       grad_clip_norm: float | None = None) -> TrainState:
+    """AdamW over every parameter of `model` (weight decay on all of them,
+    as optax's adamw without a mask).
+
+    learning_rate: float (constant) or a schedule from make_lr_schedule.
+    grad_clip_norm: clip gradients by global norm before the update
+    (None = no clipping). The parameters are the model's own: build it
+    from a seeded generator or load converted weights first.
+    """
+    schedule = learning_rate if callable(learning_rate) else None
+    lr = schedule(0) if schedule is not None else learning_rate
+    optimizer = torch.optim.AdamW(model.parameters(), lr=lr,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
+    return TrainState(model, optimizer, 0, schedule, grad_clip_norm)
+
+
+def bin_loss_weight(step: int, start: int = 1000, ramp: int = 10000,
+                    max_weight: float = 1.0) -> float:
+    """OTA-style annealing: binarisation loss off until `start`, then
+    linear ramp to `max_weight` over `ramp` steps."""
+    w = (step - start) / max(ramp, 1)
+    return min(max(w, 0.0), 1.0) * max_weight
+
+
+def make_default_objective(bin_start: int = 1000, bin_ramp: int = 10000,
+                           recon_weight: float = 1.0):
+    """The OTA loss schedule as a standalone objective(out, step) — shared
+    by make_train_step and make_eval_step so validation uses the same
+    weighting as training at the current step."""
+
+    def objective(out, step_no):
+        w_bin = bin_loss_weight(step_no, bin_start, bin_ramp)
+        loss = (out["loss_forward_sum"] + w_bin * out["loss_bin"]
+                + recon_weight * out.get("loss_recon", 0.0))
+        return loss, {
+            "loss_forward_sum": out["loss_forward_sum"],
+            "loss_bin": out["loss_bin"],
+            "bin_weight": w_bin,
+            "mean_max_attn": torch.mean(
+                torch.amax(torch.exp(out["log_attn"]), dim=-1)),
+        }
+
+    return objective
+
+
+def _metrics(loss, extra: dict) -> dict[str, Any]:
+    """Metrics stay on the device (detached); the caller reads them back
+    only where it needs them."""
+    return {k: v.detach() if torch.is_tensor(v) else v
+            for k, v in {"loss": loss, **extra}.items()}
+
+
+def _forward(model, state: TrainState, batch: dict, apply_extra):
+    if state.model is not model:
+        raise ValueError("the train state holds another model than the "
+                         "one this step was made for")
+    extra_kw = apply_extra(state.step) if apply_extra else {}
+    return model(batch["tokens"], batch["mel"], batch["text_lengths"],
+                 batch["mel_lengths"], **extra_kw)
+
+
+def make_train_step(model: nn.Module, *, bin_start: int = 1000,
+                    bin_ramp: int = 10000, recon_weight: float = 1.0,
+                    objective=None, apply_extra=None):
+    """Returns step(state, batch) -> (state, metrics); the state is
+    updated in place and returned.
+
+    The default objective is the OTA schedule (forward-sum + annealed bin
+    loss + optional reconstruction), evaluated at the step count before
+    the update. Other model families pass `objective(out, step) ->
+    (loss, extra_metrics)`. apply_extra: optional `fn(step_no) -> dict`
+    of extra keyword arguments for the model's forward.
+    """
+    obj = objective or make_default_objective(bin_start, bin_ramp,
+                                              recon_weight)
+
+    def step(state: TrainState, batch: dict[str, Any]):
+        out = _forward(model, state, batch, apply_extra)
+        loss, extra = obj(out, state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return state, _metrics(loss, extra)
+
+    return step
+
+
+def make_eval_step(model: nn.Module, *, bin_start: int = 1000,
+                   bin_ramp: int = 10000, recon_weight: float = 1.0,
+                   objective=None, apply_extra=None):
+    """Returns eval(state, batch) -> metrics: the training objective
+    evaluated at the state's current step, no gradient, no update.
+    apply_extra: as in make_train_step."""
+    obj = objective or make_default_objective(bin_start, bin_ramp,
+                                              recon_weight)
+
+    @torch.no_grad()
+    def evaluate(state: TrainState, batch: dict[str, Any]):
+        out = _forward(model, state, batch, apply_extra)
+        loss, extra = obj(out, state.step)
+        return _metrics(loss, extra)
+
+    return evaluate

@@ -1,6 +1,7 @@
 """aligner_tpu_torch forward-sum loss against the JAX package (CPU route,
 the alpha kernel's plain version): loss at rtol 1e-5, invalid items 0,
--inf inputs finite, and a backward that refuses to run."""
+-inf inputs finite. The backward is held to `jax.grad` in
+test_torch_forward_sum_grad.py."""
 import numpy as np
 import pytest
 import torch
@@ -71,10 +72,3 @@ def test_masked_logp_clamps_neg_inf():
     got = _masked_logp(lp, torch.tensor([2]))
     assert torch.equal(got, torch.tensor([[[0.0, NEG, NEG]]]))
 
-
-def test_backward_raises():
-    lp, t_x, t_y = make_case(7, 2, 4, 9)
-    x = torch.from_numpy(lp).requires_grad_()
-    loss = forward_sum_loss(x, torch.from_numpy(t_x), torch.from_numpy(t_y))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 B.5"):
-        loss.sum().backward()

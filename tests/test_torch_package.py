@@ -19,7 +19,10 @@ import torch
 
 import aligner_tpu_torch as at
 from aligner_tpu_torch.ops import forward_sum_kernel, mas_kernel
-from aligner_tpu_torch.ops.forward_sum import _masked_logp, forward_sum_loss
+from aligner_tpu_torch.ops.forward_sum import (_masked_logp,
+                                               _total_from_alphas,
+                                               _valid_items, forward_sum_loss)
+from aligner_tpu_torch.train import create_train_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,16 +44,19 @@ def ragged(seed, B, T_x, T_y):
     return value, t_x, t_y
 
 
+def small_batch():
+    rng = np.random.default_rng(0)
+    return (torch.from_numpy(rng.integers(0, 20, (3, 9))),
+            torch.from_numpy(rng.standard_normal((3, 30, 80))
+                             .astype(np.float32)),
+            torch.tensor([9, 5, 2]), torch.tensor([30, 17, 6]))
+
+
 def small_ota(device):
     model = at.OTAAligner(at.OTAConfig(vocab_size=20, dim=16, hidden=32,
                                        use_recon=True), device=device)
-    rng = np.random.default_rng(0)
-    batch = (torch.from_numpy(rng.integers(0, 20, (3, 9))),
-             torch.from_numpy(rng.standard_normal((3, 30, 80))
-                              .astype(np.float32)),
-             torch.tensor([9, 5, 2]), torch.tensor([30, 17, 6]))
     with torch.no_grad():
-        return model(*[t.to(device) for t in batch])
+        return model(*[t.to(device) for t in small_batch()])
 
 
 def test_import_pulls_in_no_jax():
@@ -59,8 +65,13 @@ def test_import_pulls_in_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'aligner_tpu'))\n"
-            "assert not bad, bad\n")
+            "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+            "              'aligner_tpu'))\n"
+            "assert not bad, bad\n"
+            "for name in ('train.step', 'train.loop', 'train.checkpoint',\n"
+            "             'data.prefetch', 'data.synthetic',\n"
+            "             'data.batching', 'utils.eval', 'cli'):\n"
+            "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -73,13 +84,16 @@ def test_cpu_route_launches_no_kernel():
             & (np.arange(15)[None, None, :] < t_y[:, None, None]))
     at.maximum_path(torch.from_numpy(value), torch.from_numpy(mask))
     small_ota("cpu")
+    model = at.OTAAligner(at.OTAConfig(vocab_size=20, dim=16, hidden=32))
+    make_train_step(model)(create_train_state(model), dict(zip(
+        ("tokens", "mel", "text_lengths", "mel_lengths"), small_batch())))
     at.BatchAligner(max_text=6, max_mel=15, max_batch=2, device="cpu") \
         .align_durations([value[1, :3, :7]])
     assert at.kernel_launches() == {}
 
 
 @pytest.mark.parametrize("call", ["mas_path", "mas_durations",
-                                  "forward_sum_alpha"])
+                                  "forward_sum_alpha", "forward_sum_grad"])
 def test_other_devices_raise(call):
     """Neither a kernel nor a plain version runs on a device that is not
     the CPU or CUDA: the route is never guessed."""
@@ -88,6 +102,9 @@ def test_other_devices_raise(call):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         if call == "forward_sum_alpha":          # [T_y, B, T_x]
             forward_sum_kernel.forward_sum_alpha(value, torch.ones(3))
+        elif call == "forward_sum_grad":
+            forward_sum_kernel.forward_sum_grad(value, value, torch.zeros(3),
+                                                torch.ones(3), torch.ones(3))
         else:
             getattr(mas_kernel, call)(value, lengths, lengths)
 
@@ -129,12 +146,45 @@ def test_alpha_kernel_matches_plain(cuda, seed, B, T_x, T_y):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed,B,T_x,T_y", [(6, 6, 16, 70), (7, 3, 128, 512),
+                                            (8, 2, 1100, 1300)])
+def test_grad_kernel_matches_plain(cuda, seed, B, T_x, T_y):
+    """H3's posterior within rtol 1e-5 / atol 1e-6 of gamma_plain on the
+    same alphas, exactly 0 off the live cells; edge items t_y = 1,
+    t_x > t_y and t_x = 0; the last case strides threads over
+    T_x > 1024."""
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((B, T_y, T_x)).astype(np.float32)), -1).to(cuda)
+    t_x = rng.integers(1, T_x + 1, B)
+    t_y = np.maximum(t_x, rng.integers(1, T_y + 1, B))
+    t_x[0], t_y[0] = 1, 1
+    if B > 2:
+        t_x[1], t_y[1] = T_x, T_x // 2
+        t_x[2] = 0
+    t_x, t_y = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                for a in (t_x, t_y))
+    lp_tm = _masked_logp(lp, t_x).transpose(0, 1)
+    alphas, final = forward_sum_kernel.forward_sum_alpha(lp_tm, t_y)
+    total = torch.where(_valid_items(t_x, t_y),
+                        _total_from_alphas(final, t_x), 0.0)
+    gamma = forward_sum_kernel.forward_sum_grad(lp_tm, alphas, total, t_x,
+                                                t_y)
+    want = forward_sum_kernel.gamma_plain(lp_tm, alphas, total, t_x, t_y)
+    torch.testing.assert_close(gamma, want, rtol=1e-5, atol=1e-6)
+    ys = torch.arange(T_y, device=cuda)[:, None, None]
+    live = (ys < t_y[None, :, None]) & (lp_tm > 0.5 * forward_sum_kernel.NEG)
+    assert not gamma[~live].any()
+
+
+@pytest.mark.cuda
 def test_cuda_main_path_never_runs_plain(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(mas_kernel, "mas_plain", refuse)
     monkeypatch.setattr(forward_sum_kernel, "alpha_plain", refuse)
+    monkeypatch.setattr(forward_sum_kernel, "gamma_plain", refuse)
     at.reset_kernel_launches()
     value, t_x, t_y = ragged(5, 4, 8, 30)
     mask = ((np.arange(8)[None, :, None] < t_x[:, None, None])
@@ -142,9 +192,20 @@ def test_cuda_main_path_never_runs_plain(cuda, monkeypatch):
     at.maximum_path(torch.from_numpy(value).to(cuda),
                     torch.from_numpy(mask).to(cuda))
     out = small_ota(cuda)
-    lp = out["logp_with_prior"]
+    lp = out["logp_with_prior"].requires_grad_()
     forward_sum_loss(lp, torch.tensor([9, 5, 2], device=cuda),
-                     torch.tensor([30, 17, 6], device=cuda))
+                     torch.tensor([30, 17, 6], device=cuda)).sum().backward()
+    assert torch.isfinite(lp.grad).all()
+    model = at.OTAAligner(at.OTAConfig(vocab_size=20, dim=16, hidden=32,
+                                       use_recon=True), device=cuda)
+    state = create_train_state(model, learning_rate=1e-3)
+    batch = dict(zip(("tokens", "mel", "text_lengths", "mel_lengths"),
+                     small_batch()))
+    step = make_train_step(model, bin_start=0, bin_ramp=1)
+    for _ in range(2):
+        state, metrics = step(state, {k: v.to(cuda)
+                                      for k, v in batch.items()})
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in metrics.values())
     aligner = at.BatchAligner(max_text=8, max_mel=30, max_batch=2,
                               device=cuda)
     lats = [value[i, :max(t_x[i], 1), :t_y[i]] for i in range(1, 4)]
@@ -152,5 +213,6 @@ def test_cuda_main_path_never_runs_plain(cuda, monkeypatch):
     aligner.align_durations(lats)
     torch.cuda.synchronize()
     launches = at.kernel_launches()
-    assert launches["mas_kernel"] >= 6
-    assert launches["forward_sum_alpha_kernel"] >= 2
+    assert launches["mas_kernel"] >= 8
+    assert launches["forward_sum_alpha_kernel"] >= 4
+    assert launches["forward_sum_grad_kernel"] >= 3

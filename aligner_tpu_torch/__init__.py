@@ -13,8 +13,9 @@ This package never imports jax.
 from ._build import kernel_launches, reset_kernel_launches
 from .models.ota import OTAAligner, OTAConfig
 from .ops.mas import maximum_path
-from .serving import BatchAligner
+from .serving import BatchAligner, SkipBatchAligner
 
 __version__ = "0.1.0"
-__all__ = ["BatchAligner", "OTAAligner", "OTAConfig", "kernel_launches",
-           "maximum_path", "reset_kernel_launches", "__version__"]
+__all__ = ["BatchAligner", "OTAAligner", "OTAConfig", "SkipBatchAligner",
+           "kernel_launches", "maximum_path", "reset_kernel_launches",
+           "__version__"]

@@ -38,14 +38,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 _SIGNATURES = {
     "mas_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _I64,
-                   _P, _I32, _I32, _I32, ctypes.c_float, _P],
+                   _P, _I32, _I32, _I32, _F32, _P],
     "forward_sum_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
                                  _I32, _I32, _P],
     "forward_sum_grad_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
                                 _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                                 _I32, _P],
+    "mas_skip_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _I32, _I32, _I32, _F32, _F32, _P],
+    "forward_sum_skip_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
+                                      _I32, _I32, _F32, _P],
+    "forward_sum_skip_gamma_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64,
+                                      _I64, _P, _P, _P, _P, _I64, _I64, _I64,
+                                      _I32, _I32, _I32, _F32, _P],
 }
 
 _LOCK = threading.Lock()

@@ -6,7 +6,8 @@ The JAX package's OTAAligner params (numpy arrays, e.g. from
 
 * a conv `kernel` [k, in, out] becomes a Conv1d weight [out, in, k];
 * a Dense `kernel` [in, out] becomes a Linear weight [out, in];
-* `embed/embedding` [V, H] is copied as it is; biases too.
+* `embed/embedding` [V, H] is copied as it is; biases and the pause
+  model's `pause_key` too.
 
 Unknown or missing keys raise, so a tree from another model family or
 configuration never loads half-way.
@@ -43,12 +44,15 @@ def _expected_keys(config: OTAConfig) -> dict[str, str]:
     if config.use_recon:
         keys["mel_decoder/kernel"] = "mel_decoder.weight"
         keys["mel_decoder/bias"] = "mel_decoder.bias"
+    if config.model_pauses:
+        keys["pause_key"] = "pause_key"
     return keys
 
 
 def flax_to_state_dict(params: Mapping,
                        config: OTAConfig) -> dict[str, torch.Tensor]:
-    """Convert a flax OTAAligner param tree for `config` (non-pause)."""
+    """Convert a flax OTAAligner param tree for `config`. A pause tree
+    does not load into a non-pause config, nor the other way round."""
     flat = _flatten(params)
     expected = _expected_keys(config)
     unknown = sorted(set(flat) - set(expected))

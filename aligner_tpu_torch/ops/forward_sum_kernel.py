@@ -130,14 +130,12 @@ def gamma_plain(lp_tm: torch.Tensor, alphas: torch.Tensor,
     return gamma.transpose(0, 1)
 
 
-def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
-                     total: torch.Tensor, t_x, t_y) -> torch.Tensor:
-    """Posterior occupancy gamma [T_y, B, T_x] (a view of a [B, T_y, T_x]
-    tensor): see `gamma_plain` for the contract. lp_tm and alphas are
-    read through their strides; total is f32 [B]."""
+def _check_grad_inputs(lp_tm, alphas, total, t_x, t_y):
+    """Validate a beta sweep's inputs; returns (total f32 [B], t_x, t_y
+    int32 [B]) on the lattice's device."""
     t_x = _check_lattice(lp_tm, t_x, "t_x")
     t_y = _check_lattice(lp_tm, t_y, "t_y")
-    T_y, B, T_x = lp_tm.shape
+    B = lp_tm.shape[1]
     if alphas.shape != lp_tm.shape or alphas.dtype != torch.float32 \
             or alphas.device != lp_tm.device:
         raise ValueError(f"alphas must be float32 {tuple(lp_tm.shape)} on "
@@ -147,6 +145,16 @@ def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
                                       dtype=torch.float32)
     if total.shape != (B,):
         raise ValueError(f"total must be [{B}], got {tuple(total.shape)}")
+    return total, t_x, t_y
+
+
+def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
+                     total: torch.Tensor, t_x, t_y) -> torch.Tensor:
+    """Posterior occupancy gamma [T_y, B, T_x] (a view of a [B, T_y, T_x]
+    tensor): see `gamma_plain` for the contract. lp_tm and alphas are
+    read through their strides; total is f32 [B]."""
+    total, t_x, t_y = _check_grad_inputs(lp_tm, alphas, total, t_x, t_y)
+    T_y, B, T_x = lp_tm.shape
     if lp_tm.device.type == "cpu":
         return gamma_plain(lp_tm, alphas, total, t_x, t_y)
     gamma = torch.empty((B, T_y, T_x), dtype=torch.float32,

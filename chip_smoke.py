@@ -4,10 +4,12 @@
 
 Builds the package's CUDA kernels from `aligner_tpu_torch/csrc/` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, then
-drives the two main paths through the public entry points and checks that
-every kernel of each path was launched there: serving (`maximum_path`,
-`OTAAligner` at the CLI's default width, `BatchAligner`) and training
-(`train_aligner` at the same width, checkpoints, `demo-ota`). Phases:
+drives the three main paths through the public entry points and checks
+that every kernel of each path was launched there: serving
+(`maximum_path`, `OTAAligner` at the CLI's default width, `BatchAligner`),
+training (`train_aligner` at the same width, checkpoints, `demo-ota`) and
+the pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
+`train_aligner` with a `pause_bias` curriculum, `demo-pauses`). Phases:
 
   1. the card (nvidia-smi name and power limit)
   2. kernel build
@@ -15,13 +17,27 @@ every kernel of each path was launched there: serving (`maximum_path`,
   4. H2 (forward-sum alpha) against alpha_plain, rtol 1e-5
   5. serving path: maximum_path, OTA forward, BatchAligner; launch counts
   6. the serving path's results against the plain route
-  7. CUDA-event times of each kernel against its plain version
+  7. CUDA-event times of each kernel against its plain version, beside
+     the least time the card could take for the same bytes and operations
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
      atol 1e-6, and the loss gradient on the card against the plain one
   9. training path: train_aligner at B=16 on a synthetic corpus, launch
      counts, checkpoint restore and a resumed step, parameter gradients
-     against a CPU copy, step times at B=16 and at B=64 x 2048 frames
+     against a CPU copy, step times at B=16 and at B=64 x 2048 frames, a
+     torch.profiler breakdown of the B=16 step
  10. `python -m aligner_tpu_torch demo-ota --device cuda` as a subprocess
+ 11. H4 (skip-state Viterbi) against mas_skip_plain and the numpy oracle,
+     bit-identical, with edge items, two enter costs and T_s > 1024
+ 12. H5 (skip forward-sum alpha) against alpha_skip_plain and H6 (skip
+     beta/posterior) against gamma_skip_plain, rtol 1e-5 / atol 1e-6, with
+     and without an enter cost, and the skip loss's backward against the
+     plain route's
+ 13. pause-aware path with every plain version patched to raise:
+     SkipBatchAligner on three requests, the pause OTA forward, and
+     train_aligner on a silence-bearing corpus with the pause_bias
+     curriculum and a checkpoint round trip; launch counts on each; the
+     pause step's time beside the pause-blind step's, and its profile
+ 14. `python -m aligner_tpu_torch demo-pauses --skip-blind --device cuda`
 
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -31,6 +47,7 @@ one CPU run is phase 9's reference gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -62,6 +79,12 @@ B_LONG, T_Y_LONG = 64, 2048              # BASELINE.json config 5
 # plain versions on the card, on the same lattice.
 GRAD_REL_LIMIT = 1e-2
 DEMO_STEPS = 30
+PAUSE_UTTERANCES = 160
+ENTER_COSTS = (0.0, -1.2, 0.6)
+T_X_WIDE = 520                           # 2*520+1 = 1041 states > 1024 threads
+# Published peaks of the H100 SXM: HBM3 bytes/s, and float32 operations/s
+# outside the tensor cores (these sweeps have no matrix product).
+PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
 
 
 def log(phase, msg):
@@ -327,41 +350,104 @@ def phase_check_main(dev, mas_run, ota_run, serving_run):
            "align_durations equal to mas_plain")
 
 
+def live_cells(t_x, t_y, skip=False):
+    """Lattice cells that the valid items (1 <= t_x <= t_y) of a ragged
+    batch need: t_x rows, or 2*t_x+1 states with `skip`, by t_y frames."""
+    valid = (t_x >= 1) & (t_x <= t_y)
+    rows = 2 * t_x + 1 if skip else t_x
+    return int((rows.long() * t_y * valid).sum())
+
+
+def bound(cells, in_lattices, out_bytes, ops_per_cell):
+    """(bound_ms, bound_by): the least time the card could take for one
+    call. The bytes it must move (each of the `cells` that the ragged
+    items need read once per input lattice, and each output byte written
+    once) over the card's memory rate, or its operations on those cells
+    over the card's float32 rate, whichever is larger."""
+    bytes_ms = (4 * in_lattices * cells + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops_per_cell * cells / PEAK_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def abba_ms(kernel, plain):
+    """(kernel ms, plain ms) by CUDA events in the order plain, kernel,
+    kernel, plain, which cancels drift in the clocks."""
+    plain_ms = cuda_ms(plain, 2)
+    ms = cuda_ms(kernel, 20)
+    ms = (ms + cuda_ms(kernel, 20)) / 2
+    return ms, (plain_ms + cuda_ms(plain, 2)) / 2
+
+
 def phase_times(dev):
-    from aligner_tpu_torch.ops.forward_sum_kernel import (alpha_plain,
-                                                          forward_sum_alpha,
-                                                          forward_sum_grad,
-                                                          gamma_plain)
-    from aligner_tpu_torch.ops.mas_kernel import mas_path, mas_plain
+    """Each kernel's time, its plain version's and its bound, by kernel
+    name, at the shapes the main paths use. No single PyTorch call
+    computes MAS, a forward-sum lattice or its posterior (ctc_loss is
+    another recursion and returns no lattice), so there is no library
+    time to put beside them."""
+    from aligner_tpu_torch.ops import forward_sum_kernel as fs
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
     value, t_x, t_y = ragged(0, B_MAS, T_X, T_Y)
     v = torch.from_numpy(value).to(dev)
     tx = torch.from_numpy(t_x).to(dev)
     ty = torch.from_numpy(t_y).to(dev)
-    lp_tm, ftx, fty = fs_inputs(3, dev)
-    # Plain, kernel, kernel, plain: the order cancels drift in clocks.
-    mas_plain_ms = cuda_ms(lambda: mas_plain(v, tx, ty), 2)
-    mas_ms = cuda_ms(lambda: mas_path(v, tx, ty), 20)
-    mas_ms = (mas_ms + cuda_ms(lambda: mas_path(v, tx, ty), 20)) / 2
-    mas_plain_ms = (mas_plain_ms
-                    + cuda_ms(lambda: mas_plain(v, tx, ty), 2)) / 2
-    fs_plain_ms = cuda_ms(lambda: alpha_plain(lp_tm, fty), 2)
-    fs_ms = cuda_ms(lambda: forward_sum_alpha(lp_tm, fty), 20)
-    fs_ms = (fs_ms + cuda_ms(lambda: forward_sum_alpha(lp_tm, fty), 20)) / 2
-    fs_plain_ms = (fs_plain_ms
-                   + cuda_ms(lambda: alpha_plain(lp_tm, fty), 2)) / 2
-    args = grad_inputs(dev)[:5]
-    gr_plain_ms = cuda_ms(lambda: gamma_plain(*args), 2)
-    gr_ms = cuda_ms(lambda: forward_sum_grad(*args), 20)
-    gr_ms = (gr_ms + cuda_ms(lambda: forward_sum_grad(*args), 20)) / 2
-    gr_plain_ms = (gr_plain_ms + cuda_ms(lambda: gamma_plain(*args), 2)) / 2
-    log(7, f"H1 mas_path B={B_MAS} {T_X}x{T_Y} (zero-fill + kernel): "
-           f"{mas_ms:.4f} ms; mas_plain {mas_plain_ms:.2f} ms")
-    log(7, f"H2 forward_sum_alpha B={B_OTA} {T_X}x{T_Y}: {fs_ms:.4f} ms; "
-           f"alpha_plain {fs_plain_ms:.2f} ms")
-    log(7, f"H3 forward_sum_grad B={B_OTA} {T_X}x{T_Y}: {gr_ms:.4f} ms; "
-           f"gamma_plain {gr_plain_ms:.2f} ms")
-    return ((mas_ms, mas_plain_ms), (fs_ms, fs_plain_ms),
-            (gr_ms, gr_plain_ms))
+    flp_tm, ftx, fty = fs_inputs(3, dev)
+    lp_tm, alphas, total, gtx, gty, _ = grad_inputs(dev)
+    sv, stx, sty = (torch.from_numpy(a).to(dev)
+                    for a in skip_viterbi_inputs())
+    slp_tm, salphas, stotal, sgtx, sgty, _ = skip_fs_inputs(dev, 0.0)
+    lattice = 4 * B_OTA * T_Y * T_X
+    skip_lattice = 4 * B_OTA * T_Y * (2 * T_X + 1)
+    # name: kernel call, plain call, (live cells, input lattices, output
+    # bytes, operations per cell)
+    runs = {
+        "mas_kernel": (
+            lambda: mk.mas_path(v, tx, ty), lambda: mk.mas_plain(v, tx, ty),
+            (live_cells(tx, ty), 1, 4 * B_MAS * T_X * T_Y, 3)),
+        "forward_sum_alpha_kernel": (
+            lambda: fs.forward_sum_alpha(flp_tm, fty),
+            lambda: fs.alpha_plain(flp_tm, fty),
+            (live_cells(ftx, fty), 1, lattice + 4 * B_OTA * T_X, 8)),
+        "forward_sum_grad_kernel": (
+            lambda: fs.forward_sum_grad(lp_tm, alphas, total, gtx, gty),
+            lambda: fs.gamma_plain(lp_tm, alphas, total, gtx, gty),
+            (live_cells(gtx, gty), 2, lattice, 13)),
+        "mas_skip_kernel": (
+            lambda: sk.mas_skip_path(sv, stx, sty),
+            lambda: sk.mas_skip_plain(sv, stx, sty),
+            (live_cells(stx, sty, True), 1, skip_lattice, 5)),
+        "forward_sum_skip_alpha_kernel": (
+            lambda: sk.forward_sum_skip_alpha(slp_tm, sgty),
+            lambda: sk.alpha_skip_plain(slp_tm, sgty),
+            (live_cells(sgtx, sgty, True), 1,
+             skip_lattice + 4 * B_OTA * (2 * T_X + 1), 16)),
+        "forward_sum_skip_gamma_kernel": (
+            lambda: sk.forward_sum_skip_grad(slp_tm, salphas, stotal, sgtx,
+                                             sgty),
+            lambda: sk.gamma_skip_plain(slp_tm, salphas, stotal, sgtx, sgty),
+            (live_cells(sgtx, sgty, True), 2, skip_lattice, 21)),
+    }
+    times = {}
+    for name, (kernel, plain, work) in runs.items():
+        ms, plain_ms = abba_ms(kernel, plain)
+        bound_ms, bound_by = bound(*work)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None}
+        log(7, f"{name}: {ms:.4f} ms; plain version {plain_ms:.2f} ms; "
+               f"bound {bound_ms:.4f} ms by {bound_by} "
+               f"({100 * bound_ms / ms:.1f}% of the kernel's time)")
+    durs_ms = cuda_ms(lambda: mk.mas_durations(v, tx, ty), 20)
+    durs_plain = cuda_ms(
+        lambda: mk.mas_plain(v, tx, ty).sum(-1).to(torch.int32), 2)
+    durs_bound, by = bound(live_cells(tx, ty), 1, 4 * B_MAS * T_X, 3)
+    log(7, f"mas_kernel, durations mode B={B_MAS} {T_X}x{T_Y}: "
+           f"{durs_ms:.4f} ms; plain version {durs_plain:.2f} ms; bound "
+           f"{durs_bound:.4f} ms by {by}")
+    log(7, f"shapes: H1 B={B_MAS} {T_X}x{T_Y}; H2, H3 B={B_OTA} "
+           f"{T_X}x{T_Y}; H4-H6 B={B_OTA} {2 * T_X + 1} states x {T_Y}, "
+           f"all ragged; no library call computes any of them")
+    return times
 
 
 def grad_inputs(dev):
@@ -453,9 +539,14 @@ def plain_loss_grad(log_probs, tx, ty):
     return -gamma.transpose(0, 1) * valid[:, None, None]
 
 
-def require_launches(where, launches, at_least):
-    for name in ("mas_kernel", "forward_sum_alpha_kernel",
-                 "forward_sum_grad_kernel"):
+TOKEN_KERNELS = ("mas_kernel", "forward_sum_alpha_kernel",
+                 "forward_sum_grad_kernel")
+SKIP_KERNELS = ("mas_skip_kernel", "forward_sum_skip_alpha_kernel",
+                "forward_sum_skip_gamma_kernel")
+
+
+def require_launches(where, launches, at_least, names=TOKEN_KERNELS):
+    for name in names:
         if launches.get(name, 0) < at_least:
             raise AssertionError(f"{where}: {name} launched "
                                  f"{launches.get(name, 0)} times, expected "
@@ -491,6 +582,40 @@ def step_ms(step, state, batch, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def profile_step(phase, name, step, state, batch, reps=5):
+    """One train step under torch.profiler: device time per step by
+    kernel, and the device's idle share against the same steps issued
+    back to back with one synchronise at the end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 1e3 / reps, e.count / reps,
+                       e.key) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation), reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    if not busy > 0:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    top = "; ".join(f"{key[:48]} {ms:.4f} ms x{count:g}"
+                    for ms, count, key in kernels[:8])
+    log(phase, f"profile of the {name} step over {reps} steps: back to back "
+               f"{wall:.4f} ms per step, device busy {busy:.4f} ms (idle "
+               f"share {1 - busy / wall:.3f}) in "
+               f"{sum(c for _, c, _ in kernels):g} device operations; "
+               f"largest: {top}")
 
 
 def phase_train(dev):
@@ -580,8 +705,9 @@ def phase_train(dev):
     if not rel < GRAD_REL_LIMIT:
         raise AssertionError(f"card and CPU gradients differ by {rel}")
 
-    step16 = step_ms(make_train_step(fresh, bin_start=0, bin_ramp=1),
-                     restored, batch, 10)
+    step = make_train_step(fresh, bin_start=0, bin_ramp=1)
+    step16 = step_ms(step, restored, batch, 10)
+    profile_step(9, f"pause-blind B={B_OTA}", step, restored, batch)
     long_model = at.OTAAligner(config, device=dev)
     long_state = create_train_state(long_model, learning_rate=LR)
     rng = np.random.default_rng(9)
@@ -648,8 +774,10 @@ def grad_vs_cpu(model, config, batch):
     return card_err, cpu_err, lattice_diff, rel
 
 
-def phase_demo(dev):
-    cmd = [sys.executable, "-m", "aligner_tpu_torch", "demo-ota",
+def run_demo(phase, dev, *args):
+    """Run one demo subcommand of the package's CLI on the card and
+    return the JSON record on its last line."""
+    cmd = [sys.executable, "-m", "aligner_tpu_torch", *args,
            "--steps", str(DEMO_STEPS), "--device", dev.type]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -659,11 +787,415 @@ def phase_demo(dev):
                              f"{proc.returncode}:\n{proc.stdout}"
                              f"{proc.stderr}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(phase, f"{' '.join(cmd[3:])} in {time.perf_counter() - t0:.1f} s: "
+               f"{json.dumps(rec)}")
+    return rec
+
+
+def phase_demo(dev):
+    rec = run_demo(10, dev, "demo-ota")
     if rec.get("demo") != "ota" or not {"duration_exact", "duration_mae",
                                         "boundary_f1_tol2"} <= set(rec):
         raise AssertionError(f"demo-ota printed {rec}")
-    log(10, f"demo-ota --steps {DEMO_STEPS} --device {dev.type} in "
-            f"{time.perf_counter() - t0:.1f} s: {json.dumps(rec)}")
+
+
+def phase_demo_pauses(dev):
+    rec = run_demo(14, dev, "demo-pauses", "--skip-blind")
+    aware = rec.get("pause_aware", {})
+    if rec.get("demo") != "pauses" or "pause_blind" in rec or not {
+            "token_boundary_f1_tol2", "pause_precision"} <= set(aware):
+        raise AssertionError(f"demo-pauses printed {rec}")
+
+
+def skip_viterbi_inputs():
+    """The skip Viterbi's inputs at B=16, 257 states x 1024 frames,
+    state-major and ragged, with edge items 0-5: t_x = 1; t_x = t_y;
+    t_x > t_y; t_x = 0; an all-zero lattice (ties everywhere); a full-size
+    item (t_x > 63, where the state index leaves int8's range)."""
+    rng = np.random.default_rng(10)
+    T_s = 2 * T_X + 1
+    value = (rng.standard_normal((B_OTA, T_s, T_Y)) * 3).astype(np.float32)
+    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
+    t_y = np.maximum(t_x, rng.integers(T_Y // 4, T_Y + 1, B_OTA)) \
+        .astype(np.int32)
+    t_x[:6] = [1, T_X, T_X, 0, 3 * T_X // 4, T_X]
+    t_y[:6] = [T_Y, T_X, T_X // 2, T_Y // 2, T_Y // 2, T_Y]
+    value[4] = 0.0
+    return value, t_x, t_y
+
+
+def phase_skip_mas(dev):
+    """H4 against mas_skip_plain on the card and the numpy oracle; returns
+    the max abs difference from the oracle (0 or the phase fails)."""
+    from aligner_tpu_torch.ops.skip_dp import mas_skip_path_frame_major
+    from aligner_tpu_torch.ops.skip_dp_kernel import (mas_skip_path,
+                                                      mas_skip_plain)
+    from aligner_tpu_torch.ops.skip_dp_reference import mas_skip_single
+    value, t_x, t_y = skip_viterbi_inputs()
+    v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+    v_fm = v.transpose(1, 2).contiguous()
+    max_err = 0.0
+    for cost in ENTER_COSTS:
+        path = mas_skip_path(v, tx, ty, enter_cost=cost)
+        torch.cuda.synchronize()
+        require_equal(f"H4 cost {cost} vs mas_skip_plain", path,
+                      mas_skip_plain(v, tx, ty, enter_cost=cost))
+        if path[2:4].any():
+            raise AssertionError("H4: invalid items must get zero paths")
+        require_equal(f"H4 cost {cost} from a frame-major lattice",
+                      mas_skip_path_frame_major(v_fm, tx, ty,
+                                                enter_cost=cost),
+                      path.transpose(1, 2))
+        got = path.cpu().numpy().astype(np.int32)
+        for i in (0, 1, 4, 5):
+            oracle = mas_skip_single(value[i], int(t_x[i]), int(t_y[i]),
+                                     enter_cost=cost)
+            max_err = max(max_err, float(np.abs(got[i] - oracle).max()))
+            if not np.array_equal(got[i], oracle):
+                raise AssertionError(f"H4 cost {cost} item {i} vs oracle")
+        log(11, f"H4 enter_cost {cost}: B={B_OTA} {2 * T_X + 1} states x "
+                f"{T_Y} bit-identical to mas_skip_plain in both layouts, "
+                f"items 0, 1, 4, 5 (t_x = 1, t_x = t_y, ties, t_x = {T_X}) "
+                f"to the numpy oracle; invalid items all zero")
+    rng = np.random.default_rng(11)
+    T_s = 2 * T_X_WIDE + 1
+    wide = torch.from_numpy(rng.standard_normal(
+        (2, T_s, 1200)).astype(np.float32)).to(dev)
+    wtx = torch.tensor([T_X_WIDE, 300], dtype=torch.int32, device=dev)
+    wty = torch.tensor([1200, 700], dtype=torch.int32, device=dev)
+    require_equal("H4 wide", mas_skip_path(wide, wtx, wty, enter_cost=-1.2),
+                  mas_skip_plain(wide, wtx, wty, enter_cost=-1.2))
+    wtx[1] = T_X_WIDE + 1        # more states than the lattice has
+    if mas_skip_path(wide, wtx, wty)[1].any():
+        raise AssertionError("H4: an oversize item must get a zero path")
+    log(11, f"H4 wide B=2 {T_s} states x 1200 (threads stride): "
+            f"bit-identical to mas_skip_plain; an item with 2*t_x+1 > T_s "
+            f"gets a zero path")
+    return max_err
+
+
+def skip_fs_inputs(dev, cost):
+    """The skip beta sweep's inputs at B=16, 257 states x 1024 frames,
+    ragged, with the edge items of `grad_inputs`: (lp_tm, alphas, total,
+    t_x, t_y, log_probs). Items 0-5: t_y = 1; t_x > t_y; t_x = 0; a
+    NEG-saturated diagonal band; a fully dead frame; -inf inputs."""
+    from aligner_tpu_torch.ops.forward_sum import _masked_logp
+    from aligner_tpu_torch.ops.skip_dp import (_total_from_alphas_skip,
+                                               _valid_items_skip, n_states)
+    from aligner_tpu_torch.ops.skip_dp_kernel import (NEG,
+                                                      forward_sum_skip_alpha)
+    rng = np.random.default_rng(12)
+    T_s = 2 * T_X + 1
+    logits = torch.from_numpy(
+        rng.standard_normal((B_OTA, T_Y, T_s)).astype(np.float32) * 3)
+    lp = torch.log_softmax(logits, dim=-1).numpy()
+    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
+    t_y = np.maximum(t_x, rng.integers(T_Y // 4, T_Y + 1, B_OTA)) \
+        .astype(np.int32)
+    t_x[0], t_y[0] = 1, 1
+    t_x[1], t_y[1] = T_X, T_X // 2
+    t_x[2] = 0
+    center = np.arange(T_Y)[:, None] * (2 * t_x[3] + 1) // t_y[3]
+    lp[3] = np.where(np.abs(np.arange(T_s)[None, :] - center) <= 3, lp[3],
+                     NEG)
+    lp[4, t_y[4] // 2, :] = NEG
+    lp[5] = np.where(rng.random((T_Y, T_s)) < 0.1, -np.inf, lp[5])
+    log_probs = torch.from_numpy(lp).to(dev)
+    tx = torch.from_numpy(t_x).to(dev)
+    ty = torch.from_numpy(t_y).to(dev)
+    lp_tm = _masked_logp(log_probs, n_states(tx)).transpose(0, 1)
+    alphas, final = forward_sum_skip_alpha(lp_tm, ty, cost)
+    total = torch.where(_valid_items_skip(tx, ty, T_s),
+                        _total_from_alphas_skip(final, tx), 0.0)
+    return lp_tm, alphas, total, tx, ty, log_probs
+
+
+def phase_skip_sums(dev):
+    """H5 against alpha_skip_plain and H6 against gamma_skip_plain on the
+    same inputs, and the skip loss's gradient through autograd (kernel
+    route) against the plain versions'; returns both max abs errors."""
+    from aligner_tpu_torch.ops.skip_dp import (_valid_items_skip,
+                                               forward_sum_skip_loss)
+    from aligner_tpu_torch.ops.skip_dp_kernel import (NEG, alpha_skip_plain,
+                                                      forward_sum_skip_grad,
+                                                      gamma_skip_plain)
+    alpha_err = gamma_err = 0.0
+    for cost in (0.0, -1.2):
+        lp_tm, alphas, total, tx, ty, log_probs = skip_fs_inputs(dev, cost)
+        want_alphas = alpha_skip_plain(lp_tm, ty, cost)
+        gamma = forward_sum_skip_grad(lp_tm, alphas, total, tx, ty, cost)
+        want = gamma_skip_plain(lp_tm, alphas, total, tx, ty, cost)
+        torch.cuda.synchronize()
+        if not torch.isfinite(gamma).all():
+            raise AssertionError("H6: gamma is not finite")
+        torch.testing.assert_close(alphas, want_alphas, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        torch.testing.assert_close(gamma, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        ys = torch.arange(T_Y, device=dev)[:, None, None]
+        live = (ys < ty[None, :, None]) & (lp_tm > 0.5 * NEG)
+        if gamma[~live].any():
+            raise AssertionError("H6: gamma is not 0 off the live cells")
+        # alphas of dead cells sit near NEG = -1e15, where one ulp is
+        # 6.7e7: report the error on the cells that carry mass.
+        carries = want_alphas > 0.5 * NEG
+        alpha_err = max(alpha_err, (alphas - want_alphas)[carries]
+                        .abs().max().item())
+        gamma_err = max(gamma_err, (gamma - want).abs().max().item())
+        x = log_probs.clone().requires_grad_()
+        forward_sum_skip_loss(x, tx, ty, enter_cost=cost).sum().backward()
+        valid = _valid_items_skip(tx, ty, lp_tm.shape[2])
+        torch.testing.assert_close(
+            x.grad, -want.transpose(0, 1) * valid[:, None, None],
+            rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        log(12, f"H5, H6 enter_cost {cost}: B={B_OTA} {2 * T_X + 1} states "
+                f"x {T_Y} with edge items (t_y=1, t_x>t_y, t_x=0, NEG "
+                f"band, dead frame, -inf): within rtol {GRAD_RTOL} / atol "
+                f"{GRAD_ATOL} of alpha_skip_plain and gamma_skip_plain (max "
+                f"abs err {alpha_err:.3g} and {gamma_err:.3g}), gamma 0 "
+                f"off {int((~live).sum())} dead cells; "
+                f"forward_sum_skip_loss backward on the card equals the "
+                f"plain versions' gradient")
+    return alpha_err, gamma_err
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """While active, every plain version raises: the CUDA path must not
+    reach one."""
+    from aligner_tpu_torch.ops import (forward_sum_kernel, mas_kernel,
+                                       skip_dp_kernel)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    patched = [(mas_kernel, "mas_plain"),
+               (forward_sum_kernel, "alpha_plain"),
+               (forward_sum_kernel, "gamma_plain"),
+               (skip_dp_kernel, "mas_skip_plain"),
+               (skip_dp_kernel, "alpha_skip_plain"),
+               (skip_dp_kernel, "gamma_skip_plain")]
+    saved = [getattr(module, name) for module, name in patched]
+    for module, name in patched:
+        setattr(module, name, refuse)
+    try:
+        yield
+    finally:
+        for (module, name), fn in zip(patched, saved):
+            setattr(module, name, fn)
+
+
+def skip_requests():
+    """Three requests of 40 ragged state-major lattices, up to 257 states
+    x 1024 frames."""
+    rng = np.random.default_rng(13)
+    requests = []
+    for _ in range(3):
+        lats = []
+        for _ in range(40):
+            tx = int(rng.integers(1, T_X + 1))
+            ty = int(rng.integers(tx, T_Y + 1))
+            lats.append((rng.standard_normal((2 * tx + 1, ty)) * 3)
+                        .astype(np.float32))
+        requests.append(lats)
+    return requests
+
+
+def pause_batches():
+    """Silence-bearing synthetic corpus (a pause with probability 0.4 per
+    token gap, none in the transcript) at the CLI width, bucketed to full
+    batches of B=16 with T_x <= 128 and T_mel <= 1024."""
+    from aligner_tpu_torch.data import (SyntheticConfig, bucket_batches,
+                                        make_corpus)
+    cfg = SyntheticConfig(vocab_size=VOCAB, n_mels=N_MELS,
+                          min_tokens=3 * T_X // 4 + 1, max_tokens=T_X,
+                          min_duration=4, max_duration=6, pause_prob=0.4,
+                          seed=14)
+    batches = bucket_batches(make_corpus(PAUSE_UTTERANCES, cfg), B_OTA,
+                             shuffle_seed=14)
+    return [b for b in batches if len(b["tokens"]) == B_OTA
+            and b["mel"].shape[1] <= T_Y]
+
+
+def phase_pause_path(dev, blind_step_ms):
+    """Drive the pause-aware entry points with every plain version
+    refused; return the kernel launches made there."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.ops.skip_dp_kernel import mas_skip_plain
+    from aligner_tpu_torch.ops.skip_dp_reference import mas_skip_single
+    from aligner_tpu_torch.train import (create_train_state,
+                                         make_train_step,
+                                         restore_checkpoint)
+    from aligner_tpu_torch.train.loop import train_aligner
+    config = at.OTAConfig(vocab_size=VOCAB, n_mels=N_MELS, dim=DIM,
+                          hidden=HIDDEN, use_recon=True, model_pauses=True)
+    requests = skip_requests()
+    aligner = at.SkipBatchAligner(max_text=T_X, max_mel=T_Y, max_batch=B_OTA,
+                                  device=dev)
+    model = at.OTAAligner(config, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.pause_key.normal_(std=0.1)
+    batch = ota_inputs(dev)
+    batches = pause_batches()
+    if len(batches) < 3:
+        raise AssertionError(f"only {len(batches)} full pause batches")
+    trained = at.OTAAligner(config, device=dev)
+    anneal = TRAIN_STEPS // 2
+
+    def curriculum(step_no):                     # -3 -> 0, as demo-pauses
+        return {"pause_bias": -3.0 + 3.0 * min(step_no / anneal, 1.0)}
+
+    lines = []
+    torch.cuda.synchronize()
+    at.reset_kernel_launches()
+    with plain_versions_refused(), tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        served = [aligner.align(r) for r in requests]
+        torch.cuda.synchronize()
+        after_serving = at.kernel_launches()
+        with torch.no_grad():
+            ota = model(*batch, pause_bias=-0.5)
+        torch.cuda.synchronize()
+        after_forward = at.kernel_launches()
+        state, history = train_aligner(
+            trained, batches, steps=TRAIN_STEPS, device=dev,
+            learning_rate=LR, bin_start=BIN_START, bin_ramp=BIN_RAMP,
+            log_every=1, checkpoint_dir=ckpt, apply_extra=curriculum,
+            log_fn=lambda line: lines.append((time.perf_counter(), line)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = at.kernel_launches()
+        fresh = at.OTAAligner(config, device=dev,
+                              generator=torch.Generator().manual_seed(1))
+        restored = restore_checkpoint(ckpt, create_train_state(
+            fresh, learning_rate=LR))
+        live = trained.state_dict()
+        for key, value in fresh.state_dict().items():
+            if not torch.equal(value, live[key]):
+                raise AssertionError(f"restored {key} differs")
+        first = {k: torch.as_tensor(v).to(dev)
+                 for k, v in batches[0].items()}
+        step = make_train_step(fresh, bin_start=0, bin_ramp=1,
+                               apply_extra=curriculum)
+        pause_step_ms = step_ms(step, restored, first, 10)
+        profile_step(13, f"pause B={B_OTA}", step, restored, first)
+    slices = sum(-(-len(r) // B_OTA) for r in requests)
+    shapes = sorted({tuple(b["mel"].shape[:2]) for b in batches})
+    log(13, f"SkipBatchAligner 3x40 requests, pause OTA forward B={B_OTA} "
+            f"at {VOCAB}/{N_MELS}/{DIM}/{HIDDEN} f32, train_aligner "
+            f"{TRAIN_STEPS} steps on {len(batches)} silence-bearing batches "
+            f"of [B, T_mel] {shapes} with the pause_bias curriculum, in "
+            f"{seconds:.2f} s, no plain version reached; kernel launches "
+            f"{launches}")
+    if after_serving != {"mas_skip_kernel": slices}:
+        raise AssertionError(f"SkipBatchAligner launched {after_serving}, "
+                             f"expected {slices} of mas_skip_kernel")
+    forward = {k: after_forward.get(k, 0) - after_serving.get(k, 0)
+               for k in SKIP_KERNELS}
+    if forward != {"mas_skip_kernel": 1, "forward_sum_skip_alpha_kernel": 1,
+                   "forward_sum_skip_gamma_kernel": 0}:
+        raise AssertionError(f"the pause OTA forward launched {forward}")
+    training = {k: launches.get(k, 0) - after_forward.get(k, 0)
+                for k in SKIP_KERNELS}
+    require_launches("pause training", training, TRAIN_STEPS, SKIP_KERNELS)
+    if set(launches) != set(SKIP_KERNELS):
+        raise AssertionError(f"the pause path launched {set(launches)}")
+
+    for r, (lats, results) in enumerate(zip(requests, served)):
+        for start in range(0, len(lats), B_OTA):
+            group = lats[start:start + B_OTA]
+            value = np.zeros((B_OTA, 2 * T_X + 1, T_Y), np.float32)
+            tx = np.zeros(B_OTA, np.int32)
+            ty = np.zeros(B_OTA, np.int32)
+            for i, lat in enumerate(group):
+                tx[i], ty[i] = (lat.shape[0] - 1) // 2, lat.shape[1]
+                value[i, :lat.shape[0], :ty[i]] = lat
+            want = mas_skip_plain(torch.from_numpy(value).to(dev),
+                                  torch.from_numpy(tx).to(dev),
+                                  torch.from_numpy(ty).to(dev)).cpu().numpy()
+            for i, lat in enumerate(group):
+                ts = lat.shape[0]
+                w = want[i, :ts, :ty[i]]
+                path, tok, pause = results[start + i]
+                if not (np.array_equal(path, w)
+                        and np.array_equal(tok, w.sum(-1)[1::2])
+                        and np.array_equal(pause, w.sum(-1)[0::2])):
+                    raise AssertionError(
+                        f"SkipBatchAligner request {r} item {start + i}")
+        for i in np.argsort([lat.size for lat in lats])[:4]:
+            lat = lats[i]
+            oracle = mas_skip_single(lat, (lat.shape[0] - 1) // 2,
+                                     lat.shape[1])
+            if not np.array_equal(results[i][0], oracle):
+                raise AssertionError(
+                    f"SkipBatchAligner request {r} item {i} vs oracle")
+    log(13, "SkipBatchAligner: 3 requests x 40 lattices equal to "
+            "mas_skip_plain, the 4 smallest of each to the numpy oracle")
+
+    tokens, mel, tl, ml = batch
+    for key, val in ota.items():
+        if not torch.isfinite(val).all():
+            raise AssertionError(f"pause OTA {key} is not finite")
+    logp = ota["logp_with_prior"]
+    if logp.shape != (B_OTA, T_Y, 2 * T_X + 1):
+        raise AssertionError(f"pause OTA lattice is {tuple(logp.shape)}")
+    require_equal("pause OTA hard_path vs mas_skip_plain", ota["hard_path"],
+                  mas_skip_plain(logp.transpose(1, 2), tl, ml)
+                  .transpose(1, 2))
+    frames = ota["durations"].sum(-1) + ota["pause_durations"].sum(-1)
+    if not torch.equal(frames, ml.float()):
+        raise AssertionError("pause OTA durations and pause durations do "
+                             "not sum to the mel lengths")
+    plain_loss = plain_skip_loss(logp, tl, ml)
+    got = ota["loss_forward_sum"]
+    if not torch.allclose(got, plain_loss, rtol=FS_RTOL, atol=0):
+        raise AssertionError(f"pause OTA loss_forward_sum {got.item()} vs "
+                             f"plain {plain_loss.item()}")
+    log(13, f"pause OTA: hard_path bit-identical to mas_skip_plain on its "
+            f"logp_with_prior; loss_forward_sum {got.item():.6f} vs plain "
+            f"{plain_loss.item():.6f}; token and pause durations sum to the "
+            f"mel lengths ({int(ota['pause_durations'].sum())} pause "
+            f"frames); loss_bin {ota['loss_bin'].item():.4f}, loss_recon "
+            f"{ota['loss_recon'].item():.4f}")
+
+    train = [r for r in history if "loss" in r]
+    for rec in history:
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"a metric is not finite: {rec}")
+    if len(train) != TRAIN_STEPS or restored.step != TRAIN_STEPS + 22:
+        raise AssertionError(f"{len(train)} train records, restored and "
+                             f"timed state at step {restored.step}")
+    if not train[-1]["loss"] < train[0]["loss"]:
+        raise AssertionError(f"loss did not fall: {train[0]['loss']} -> "
+                             f"{train[-1]['loss']}")
+    if not trained.pause_key.abs().max() > 0:
+        raise AssertionError("the pause key did not move")
+    stamps = [t for t, _ in lines]
+    step_wall = statistics.median(
+        (b - a) * 1e3 for a, b in zip(stamps[3:], stamps[4:]))
+    log(13, f"pause training: loss {train[0]['loss']:.4f} -> "
+            f"{train[-1]['loss']:.4f} (forward-sum "
+            f"{train[0]['loss_forward_sum']:.4f} -> "
+            f"{train[-1]['loss_forward_sum']:.4f}); checkpoint restored "
+            f"with equal parameters; median wall {step_wall:.2f} ms per "
+            f"step in the loop; synchronised step, median of 10: pause "
+            f"model {pause_step_ms:.2f} ms at {tuple(first['mel'].shape[:2])}"
+            f" beside the pause-blind model's {blind_step_ms:.2f} ms")
+    return launches
+
+
+def plain_skip_loss(logp, tl, ml):
+    """loss_forward_sum of a pause lattice from alpha_skip_plain."""
+    from aligner_tpu_torch.ops.forward_sum import _masked_logp
+    from aligner_tpu_torch.ops.skip_dp import (_total_from_alphas_skip,
+                                               _valid_items_skip, n_states)
+    from aligner_tpu_torch.ops.skip_dp_kernel import alpha_skip_plain
+    alphas = alpha_skip_plain(
+        _masked_logp(logp, n_states(tl)).transpose(0, 1), ml)
+    total = _total_from_alphas_skip(alphas[-1], tl)
+    valid = _valid_items_skip(tl, ml, logp.shape[2])
+    return torch.mean(-torch.where(valid, total, 0.0) / ml.clamp(min=1))
 
 
 def main():
@@ -684,23 +1216,35 @@ def main():
     phase_check_main(dev, mas_run, ota_run, serving_run)
     times = phase_times(dev)
     grad_err = phase_grad(dev)
-    training, *_ = phase_train(dev)
+    training, _, blind_step_ms, _ = phase_train(dev)
     phase_demo(dev)
+    skip_mas_err = phase_skip_mas(dev)
+    skip_alpha_err, skip_gamma_err = phase_skip_sums(dev)
+    pauses = phase_pause_path(dev, blind_step_ms)
+    phase_demo_pauses(dev)
+    pallas = "aligner_tpu/ops/"
     kernels = []
-    for (name, source, replaces, err), (ms, plain_ms) in zip([
+    for name, source, replaces, err in [
             ("mas_kernel", "mas.cu", "mas_pallas.py:547", mas_err),
             ("forward_sum_alpha_kernel", "forward_sum.cu",
              "forward_sum_pallas.py:77", fs_err),
             ("forward_sum_grad_kernel", "forward_sum.cu",
-             "forward_sum_pallas.py:126", grad_err)], times):
+             "forward_sum_pallas.py:126", grad_err),
+            ("mas_skip_kernel", "skip_dp.cu", "skip_dp_pallas.py:181",
+             skip_mas_err),
+            ("forward_sum_skip_alpha_kernel", "skip_dp.cu",
+             "skip_dp_pallas.py:476", skip_alpha_err),
+            ("forward_sum_skip_gamma_kernel", "skip_dp.cu",
+             "skip_dp_pallas.py:524", skip_gamma_err)]:
         by_path = {"serving": serving.get(name, 0),
-                   "training": training.get(name, 0)}
+                   "training": training.get(name, 0),
+                   "pauses": pauses.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",
-            "replaces": f"aligner_tpu/ops/{replaces}",
+            "replaces": pallas + replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            "max_abs_err": err, **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,8 +126,7 @@ def test_seeded_init_is_reproducible():
         assert torch.equal(p, q), name
 
 
-@pytest.mark.parametrize("field,value", [("model_pauses", True),
-                                         ("compute_dtype", "bfloat16")])
+@pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16")])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         OTAAligner(OTAConfig(vocab_size=VOCAB, dim=DIM, hidden=HIDDEN,

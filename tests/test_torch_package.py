@@ -18,7 +18,8 @@ import pytest
 import torch
 
 import aligner_tpu_torch as at
-from aligner_tpu_torch.ops import forward_sum_kernel, mas_kernel
+from aligner_tpu_torch.ops import (forward_sum_kernel, mas_kernel, skip_dp,
+                                   skip_dp_kernel)
 from aligner_tpu_torch.ops.forward_sum import (_masked_logp,
                                                _total_from_alphas,
                                                _valid_items, forward_sum_loss)
@@ -52,11 +53,29 @@ def small_batch():
             torch.tensor([9, 5, 2]), torch.tensor([30, 17, 6]))
 
 
-def small_ota(device):
+def small_ota(device, **config):
     model = at.OTAAligner(at.OTAConfig(vocab_size=20, dim=16, hidden=32,
-                                       use_recon=True), device=device)
+                                       use_recon=True, **config),
+                          device=device)
     with torch.no_grad():
         return model(*[t.to(device) for t in small_batch()])
+
+
+def skip_ragged(seed, B, T_x, T_y):
+    """State-major lattice [B, 2*T_x+1, T_y] with the contract's edge
+    items: t_x > t_y, t_x = 0, t_x = 1, t_x = t_y, and a tie-only item."""
+    rng = np.random.default_rng(seed)
+    value = rng.standard_normal((B, 2 * T_x + 1, T_y)).astype(np.float32)
+    t_x = rng.integers(1, T_x + 1, B).astype(np.int32)
+    t_y = np.maximum(t_x, rng.integers(1, T_y + 1, B)).astype(np.int32)
+    t_x[0], t_y[0] = T_x, T_x           # every frame a token
+    t_x[1], t_y[1] = T_x, T_y           # a full item
+    if B > 2:
+        t_x[2], t_y[2] = T_x, T_x // 2  # t_x > t_y: all-zero path
+        t_x[3] = 0
+        t_x[4], t_y[4] = 1, T_y
+        value[5] = 0.0                  # ties everywhere
+    return value, t_x, t_y
 
 
 def test_import_pulls_in_no_jax():
@@ -70,7 +89,9 @@ def test_import_pulls_in_no_jax():
             "assert not bad, bad\n"
             "for name in ('train.step', 'train.loop', 'train.checkpoint',\n"
             "             'data.prefetch', 'data.synthetic',\n"
-            "             'data.batching', 'utils.eval', 'cli'):\n"
+            "             'data.batching', 'utils.eval', 'cli',\n"
+            "             'ops.skip_dp', 'ops.skip_dp_kernel',\n"
+            "             'ops.skip_dp_reference'):\n"
             "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -89,6 +110,9 @@ def test_cpu_route_launches_no_kernel():
         ("tokens", "mel", "text_lengths", "mel_lengths"), small_batch())))
     at.BatchAligner(max_text=6, max_mel=15, max_batch=2, device="cpu") \
         .align_durations([value[1, :3, :7]])
+    small_ota("cpu", model_pauses=True)
+    at.SkipBatchAligner(max_text=3, max_mel=15, max_batch=2, device="cpu") \
+        .align([value[1, :5, :7]])
     assert at.kernel_launches() == {}
 
 
@@ -175,6 +199,102 @@ def test_grad_kernel_matches_plain(cuda, seed, B, T_x, T_y):
     ys = torch.arange(T_y, device=cuda)[:, None, None]
     live = (ys < t_y[None, :, None]) & (lp_tm > 0.5 * forward_sum_kernel.NEG)
     assert not gamma[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,B,T_x,T_y,cost", [(10, 8, 12, 61, 0.0),
+                                                 (11, 6, 128, 300, -1.2),
+                                                 (12, 2, 520, 700, 0.6)])
+def test_mas_skip_kernel_matches_plain(cuda, seed, B, T_x, T_y, cost):
+    """Bit-identical paths in both layouts and from a frame-major
+    lattice read in place; the last case strides threads over
+    T_s = 1041 > 1024."""
+    value, t_x, t_y = skip_ragged(seed, B, T_x, T_y)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    path = skip_dp_kernel.mas_skip_path(v, tx, ty, enter_cost=cost)
+    want = skip_dp_kernel.mas_skip_plain(v, tx, ty, enter_cost=cost)
+    torch.testing.assert_close(path, want, rtol=0, atol=0)
+    fm = skip_dp.mas_skip_path_frame_major(
+        v.transpose(1, 2).contiguous(), tx, ty, enter_cost=cost)
+    assert fm.is_contiguous()
+    torch.testing.assert_close(fm, want.transpose(1, 2), rtol=0, atol=0)
+    tx[1] = T_x + 1                      # more states than the lattice has
+    assert not skip_dp_kernel.mas_skip_path(v, tx, ty)[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,B,T_x,T_y,cost", [(13, 6, 12, 70, 0.0),
+                                                 (14, 6, 128, 300, -1.3),
+                                                 (15, 2, 520, 700, 0.8)])
+def test_skip_sweep_kernels_match_plain(cuda, seed, B, T_x, T_y, cost):
+    """H5's alpha lattice and H6's posterior within rtol 1e-5 / atol 1e-6
+    of the plain sweeps on the card, gamma exactly 0 off the live cells,
+    and the loss's backward equal to the plain route's; the last case
+    strides threads over T_s = 1041 > 1024."""
+    value, t_x, t_y = skip_ragged(seed, B, T_x, T_y)
+    lp = torch.log_softmax(torch.from_numpy(value).transpose(1, 2), -1) \
+        .contiguous().to(cuda)
+    t_x, t_y = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
+    lp_tm = _masked_logp(lp, skip_dp.n_states(t_x)).transpose(0, 1)
+    alphas, final = skip_dp_kernel.forward_sum_skip_alpha(lp_tm, t_y, cost)
+    want = skip_dp_kernel.alpha_skip_plain(lp_tm, t_y, cost)
+    torch.testing.assert_close(alphas, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(final, alphas[-1], rtol=0, atol=0)
+    valid = skip_dp._valid_items_skip(t_x, t_y, lp.shape[2])
+    total = torch.where(valid,
+                        skip_dp._total_from_alphas_skip(final, t_x), 0.0)
+    gamma = skip_dp_kernel.forward_sum_skip_grad(lp_tm, alphas, total, t_x,
+                                                 t_y, cost)
+    want = skip_dp_kernel.gamma_skip_plain(lp_tm, alphas, total, t_x, t_y,
+                                           cost)
+    torch.testing.assert_close(gamma, want, rtol=1e-5, atol=1e-6)
+    ys = torch.arange(lp.shape[1], device=cuda)[:, None, None]
+    live = (ys < t_y[None, :, None]) & (lp_tm > 0.5 * skip_dp_kernel.NEG)
+    assert not gamma[~live].any()
+    x = lp.clone().requires_grad_()
+    skip_dp.forward_sum_skip_loss(x, t_x, t_y, cost).sum().backward()
+    torch.testing.assert_close(
+        x.grad, -want.transpose(0, 1) * valid[:, None, None], rtol=1e-5,
+        atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_pause_path_never_runs_plain(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for module, name in ((mas_kernel, "mas_plain"),
+                         (forward_sum_kernel, "alpha_plain"),
+                         (forward_sum_kernel, "gamma_plain"),
+                         (skip_dp_kernel, "mas_skip_plain"),
+                         (skip_dp_kernel, "alpha_skip_plain"),
+                         (skip_dp_kernel, "gamma_skip_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    at.reset_kernel_launches()
+    model = at.OTAAligner(at.OTAConfig(
+        vocab_size=20, dim=16, hidden=32, use_recon=True, model_pauses=True,
+        pause_silence_anchor=0.5, pause_enter_cost=-0.3), device=cuda)
+    state = create_train_state(model, learning_rate=1e-3)
+    batch = dict(zip(("tokens", "mel", "text_lengths", "mel_lengths"),
+                     small_batch()))
+    step = make_train_step(
+        model, bin_start=0, bin_ramp=1,
+        apply_extra=lambda n: {"pause_bias": -3.0 + n})
+    for _ in range(2):
+        state, metrics = step(state, {k: v.to(cuda)
+                                      for k, v in batch.items()})
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in metrics.values())
+    assert model.pause_key.abs().max() > 0
+    value, t_x, t_y = skip_ragged(16, 6, 4, 30)
+    lats = [value[i, :2 * t_x[i] + 1, :t_y[i]] for i in (0, 1, 4, 5)]
+    served = at.SkipBatchAligner(max_text=4, max_mel=30, max_batch=3,
+                                 device=cuda).align(lats)
+    assert all(tok.sum() + pause.sum() == lat.shape[1]
+               for lat, (_, tok, pause) in zip(lats, served))
+    torch.cuda.synchronize()
+    assert at.kernel_launches() == {"mas_skip_kernel": 4,
+                                    "forward_sum_skip_alpha_kernel": 2,
+                                    "forward_sum_skip_gamma_kernel": 2}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """aligner_tpu_torch training path against the JAX package (CPU route, the
 kernels' plain versions): train steps from one JAX init, the LR schedule,
-the loop (resume, seed, validation, config.json) and `demo-ota`."""
+the loop (resume, seed, validation, config.json), `demo-ota`, and the
+pause-aware model through the same step, loop, checkpoints and
+`demo-pauses`."""
 import json
 
 import numpy as np
@@ -100,6 +102,97 @@ def test_train_steps_match_jax(case):
                                    rtol=0, err_msg=key)
     # the steps really moved the parameters
     assert max(float((got[k] - init[k]).abs().max()) for k in got) > 1e-4
+
+
+def pause_config_kw():
+    return dict(**config_kw(True), model_pauses=True,
+                pause_silence_anchor=0.5, pause_enter_cost=-0.3)
+
+
+def test_pause_train_steps_match_jax():
+    """Three steps of the pause-aware model with a pause_bias schedule
+    through apply_extra, from one JAX init on the same batches: metrics at
+    rtol 1e-4 each step, parameters (the pause key among them) at atol
+    2e-5 after the last. An Adam step moves a parameter by about the
+    learning rate (1e-3) whatever its gradient's size, so an element whose
+    gradient is near zero turns the float32 noise of the 25-state
+    posteriors into a sign-sized share of a step; 2e-5 is 2% of one step
+    (1 of 768 elements of one kernel lands at 1.2e-5, the rest below
+    1e-5)."""
+    batches = [make_batch(s) for s in (4, 5, 6)]
+    jax_model = JaxOTA(JaxConfig(mas_implementation="lax",
+                                 **pause_config_kw()))
+    jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    jstate = jax_step.create_train_state(jax.random.PRNGKey(0), jax_model,
+                                         jb0, learning_rate=1e-3)
+    model = OTAAligner(OTAConfig(**pause_config_kw()))
+    model.load_state_dict(flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, jstate.params), model.config))
+    state = step.create_train_state(model, learning_rate=1e-3)
+    seen = []
+
+    def schedule(step_no):                       # -3 -> 0 over two steps
+        seen.append(int(step_no))
+        return {"pause_bias": -3.0 + 3.0 * min(step_no / 2, 1.0)}
+
+    jstep = jax_step.make_train_step(
+        jax_model, bin_start=0, bin_ramp=2, donate=False,
+        apply_extra=lambda n: {"pause_bias": -3.0 + 3.0 * jnp.clip(
+            n / 2, 0.0, 1.0)})
+    tstep = step.make_train_step(model, bin_start=0, bin_ramp=2,
+                                 apply_extra=schedule)
+    for i, batch in enumerate(batches):
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        state, m = tstep(state, torch_batch(batch))
+        for key in METRICS:
+            np.testing.assert_allclose(float(m[key]), float(jm[key]),
+                                       rtol=1e-4, atol=1e-7,
+                                       err_msg=f"step {i} {key}")
+    assert seen == [0, 1, 2]
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     jstate.params),
+                              model.config)
+    got = model.state_dict()
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key].numpy(), w.numpy(), atol=2e-5,
+                                   rtol=0, err_msg=key)
+    assert float(got["pause_key"].abs().max()) > 1e-4
+
+
+def test_pause_loop_checkpoint_round_trip(tmp_path):
+    """train_aligner with a pause model and a pause_bias schedule, then a
+    restore into a fresh pause model; a pause checkpoint does not load
+    into a pause-blind model."""
+    ckpt = str(tmp_path / "ckpt")
+    model = OTAAligner(OTAConfig(**pause_config_kw()))
+    biases = []
+
+    def schedule(step_no):
+        biases.append(-3.0 + step_no)
+        return {"pause_bias": biases[-1]}
+
+    state, history = train_aligner(
+        model, [make_batch(1), make_batch(2)], checkpoint_dir=ckpt,
+        eval_batches=[make_batch(3)], eval_every=3, apply_extra=schedule,
+        **loop_kw(bin_start=-1, bin_ramp=1))
+    assert all(np.isfinite(v) for r in history for v in r.values())
+    # three train steps, then one evaluation at the state's step
+    assert biases == [-3.0, -2.0, -1.0, 0.0]
+    cfg = checkpoint.load_run_config(ckpt)["model_config"]
+    assert cfg["model_pauses"] and cfg["pause_prior"] == "bridge"
+    assert cfg["pause_enter_cost"] == -0.3
+    fresh = OTAAligner(OTAConfig(**cfg),
+                       generator=torch.Generator().manual_seed(9))
+    restored = checkpoint.restore_checkpoint(
+        ckpt, step.create_train_state(fresh, learning_rate=1e-3))
+    assert restored.step == 3
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, fresh.state_dict()[k]), k
+    assert fresh.pause_key.abs().max() > 0
+    with pytest.raises(RuntimeError, match="pause_key"):
+        checkpoint.restore_params(ckpt, OTAAligner(OTAConfig(
+            **{**cfg, "model_pauses": False})))
 
 
 def test_lr_schedule_values_match_optax():
@@ -308,3 +401,31 @@ def test_demo_ota_refuses_a_missing_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["demo-ota", "--steps", "1"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["demo-pauses", "--steps", "1"])
+
+
+@pytest.mark.parametrize("skip_blind", [True, False])
+def test_demo_pauses_prints_its_json_line(capsys, skip_blind):
+    cli.main(["demo-pauses", "--steps", "4", "--utterances", "12",
+              "--batch-size", "6", "--device", "cpu"]
+             + (["--skip-blind"] if skip_blind else []))
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["demo"] == "pauses" and rec["steps"] == 4
+    assert rec["pause_prob"] == 0.4
+    assert ("pause_blind" in rec) == (not skip_blind)
+    assert {"token_boundary_f1_tol2", "pause_precision"} \
+        <= set(rec["pause_aware"])
+    assert 0.0 <= rec["pause_aware"]["token_boundary_f1_tol2"] <= 1.0
+    if not skip_blind:
+        assert set(rec["pause_blind"]) == {"token_boundary_f1_tol2"}
+
+
+def test_demo_pauses_flags_match_the_jax_cli():
+    from aligner_tpu import cli as jax_cli
+    argv = ["demo-pauses", "--steps", "7", "--pause-bias-start", "-2",
+            "--pause-enter-cost", "0.1", "--hard"]
+    want = vars(jax_cli.build_parser().parse_args(argv))
+    got = vars(cli.build_parser().parse_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == want

@@ -11,11 +11,14 @@ or raises; a CPU tensor runs the kernel's plain PyTorch version.
 This package never imports jax.
 """
 from ._build import kernel_launches, reset_kernel_launches
+from .models.mobo import MoBoAligner, MoBoConfig
 from .models.ota import OTAAligner, OTAConfig
+from .models.romo import RoMoAligner, RoMoConfig
 from .ops.mas import maximum_path
 from .serving import BatchAligner, SkipBatchAligner
 
 __version__ = "0.1.0"
-__all__ = ["BatchAligner", "OTAAligner", "OTAConfig", "SkipBatchAligner",
+__all__ = ["BatchAligner", "MoBoAligner", "MoBoConfig", "OTAAligner",
+           "OTAConfig", "RoMoAligner", "RoMoConfig", "SkipBatchAligner",
            "kernel_launches", "maximum_path", "reset_kernel_launches",
            "__version__"]

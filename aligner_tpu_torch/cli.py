@@ -3,16 +3,22 @@
     python -m aligner_tpu_torch demo-ota [--steps N] [--batch-size B] ...
                                          [--device cuda|cpu]
     python -m aligner_tpu_torch demo-pauses [--steps N] [--skip-blind] ...
+    python -m aligner_tpu_torch demo-mobo [--steps N] [--max-duration D] ...
+    python -m aligner_tpu_torch demo-romo [--steps N] [--window W] ...
 
 `demo-ota` trains the OTA aligner on the synthetic corpus (known
 ground-truth durations) and prints duration accuracy and boundary F1 as
 one JSON line. `demo-pauses` trains the pause-aware aligner and the
 pause-blind one on a corpus with un-transcribed silences and prints their
-boundary and pause metrics as one JSON line. Both have the flags and the
-flow of aligner_tpu's subcommands of the same names, and run on
-`--device` (default `cuda`, which raises where no GPU is present;
-`--device cpu` runs every kernel's plain version). The other subcommands
-of aligner_tpu's CLI are not ported yet (ROADMAP.md).
+boundary and pause metrics as one JSON line. `demo-mobo` trains the MoBo
+boundary-search aligner on one synthetic batch with the reconstruction
+objective and prints the quality of its hard boundaries; `demo-romo`
+trains the RoMo aligner (rough OTA anchors, then a windowed MoBo
+refinement) and prints the rough and the refined stage's duration
+quality. All have the flags and the flow of aligner_tpu's subcommands of
+the same names, and run on `--device` (default `cuda`, which raises where
+no GPU is present; `--device cpu` runs every kernel's plain version). The
+other subcommands of aligner_tpu's CLI are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,6 +56,22 @@ def _common(p):
                         "is no fallback to the CPU)")
 
 
+def _recon_mse(soft_alignment, protos, b, n_mels, feasible=None):
+    """Per-frame mel reconstruction MSE through alignment posteriors, the
+    auxiliary that pins boundaries in the MoBo-family demos (marginal
+    NLLs alone only shape energies). `feasible` ([B] bool) gates items
+    whose posteriors are sentinels (RoMo: no boundary sequence fits the
+    refinement window)."""
+    T_y = b["mel"].shape[1]
+    recon = torch.bmm(soft_alignment, protos[b["tokens"]])
+    m = (torch.arange(T_y, device=recon.device)[None, :, None]
+         < b["mel_lengths"][:, None, None])
+    if feasible is not None:
+        m = m & feasible[:, None, None]
+    return (torch.sum(torch.where(m, (recon - b["mel"]) ** 2, 0.0))
+            / m.sum().clamp(min=1) / n_mels)
+
+
 def _init_seed(args):
     return args.seed if args.init_seed is None else args.init_seed
 
@@ -83,6 +105,18 @@ def build_parser():
     p.add_argument("--temperature", type=float, default=0.15)
     p.add_argument("--recon", action="store_true",
                    help="enable the per-frame reconstruction auxiliary")
+    p = sub.add_parser("demo-mobo", help="train the MoBo aligner "
+                                         "(reconstruction objective)")
+    _common(p)
+    p.add_argument("--max-duration", type=int, default=10)
+    p = sub.add_parser(
+        "demo-romo",
+        help="train the RoMo aligner (rough OTA anchors + windowed MoBo "
+             "refinement) and report rough vs refined duration quality")
+    _common(p)
+    p.add_argument("--max-duration", type=int, default=10)
+    p.add_argument("--window", type=int, default=8,
+                   help="refinement half-window around the rough anchors")
     p = sub.add_parser(
         "demo-pauses",
         help="implicit pause modeling on a silence-bearing corpus: "
@@ -267,9 +301,126 @@ def cmd_demo_pauses(args):
     print(json.dumps(result), flush=True)
 
 
+def _one_batch_demo(args, make_model, loss_fn, label):
+    """The flow the MoBo and RoMo demos share: one padded synthetic batch,
+    Adam at 3 * --lr on `loss_fn(out, batch, prototypes)` of the model's
+    forward without the hard decode, a log line every 100 steps, then one
+    forward with it. Returns (corpus, final outputs)."""
+    from .data import SyntheticConfig, make_corpus, pad_batch, prototypes
+
+    if args.max_duration < 3:
+        raise SystemExit("--max-duration must be >= 3 (the synthetic "
+                         "corpus draws durations in [2, max_duration-1])")
+    device = _device(args)
+    cfg = SyntheticConfig(seed=args.seed,
+                          max_tokens=args.max_tokens or 16,
+                          max_duration=min(7, args.max_duration - 1),
+                          **_synth_kwargs(args))
+    corpus = make_corpus(args.batch_size, cfg)
+    b = {k: torch.as_tensor(v).to(device)
+         for k, v in pad_batch(corpus).items()}
+    protos = torch.as_tensor(prototypes(cfg)).to(device)
+    model = make_model(cfg, device, torch.Generator().manual_seed(
+        _init_seed(args)))
+    inputs = (b["tokens"], b["mel"], b["text_lengths"], b["mel_lengths"])
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr * 3)
+    for i in range(args.steps):
+        loss = loss_fn(model(*inputs, compute_hard=False), b, protos,
+                       cfg.n_mels)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if i % 100 == 0:
+            print(f"step {i:5d}  {label} {loss.item():.4f}", flush=True)
+    with torch.no_grad():
+        out = model(*inputs)
+    return corpus, out
+
+
+def _stage_metrics(corpus, durs, keep=None):
+    """Mean duration accuracy and boundary F1 of `durs` [B, T_x] over the
+    corpus; keep: optional [B] bool, the items to include."""
+    from .data import duration_accuracy
+    from .utils.eval import boundary_f1
+    accs = []
+    for i, item in enumerate(corpus):
+        if keep is not None and not bool(keep[i]):
+            continue
+        t_xi = len(item["tokens"])
+        d = np.rint(np.asarray(durs[i])).astype(int)
+        rec = duration_accuracy(d, item)
+        rec["f1"] = boundary_f1(d[:t_xi], item["durations"],
+                                tolerance_frames=2)["f1"]
+        accs.append(rec)
+    if not accs:
+        return None
+    return {
+        "duration_exact": round(float(np.mean([a["exact"] for a in accs])), 3),
+        "duration_mae": round(float(np.mean([a["mae"] for a in accs])), 3),
+        "boundary_f1_tol2": round(float(np.mean([a["f1"] for a in accs])), 3),
+    }
+
+
+def cmd_demo_mobo(args):
+    from .models.mobo import MoBoAligner, MoBoConfig
+
+    def make_model(cfg, device, generator):
+        return MoBoAligner(MoBoConfig(
+            vocab_size=cfg.vocab_size, dim=64, hidden=96,
+            max_duration=args.max_duration), device=device,
+            generator=generator)
+
+    def loss_fn(out, b, protos, n_mels):
+        rec = _recon_mse(out["soft_alignment"], protos, b, n_mels)
+        return rec + 0.1 * out["loss_mobo"]
+
+    corpus, out = _one_batch_demo(args, make_model, loss_fn, "recon+nll")
+    print(json.dumps({"demo": "mobo", **_stage_metrics(
+        corpus, out["hard_durations"].cpu().numpy())}), flush=True)
+
+
+def cmd_demo_romo(args):
+    """RoMoAligner end to end: the rough OTA stage learns soft posteriors
+    whose expected durations anchor the windowed MoBo refinement; reports
+    both stages' duration quality so the refinement's contribution is
+    visible."""
+    from .models.romo import RoMoAligner, RoMoConfig
+
+    def make_model(cfg, device, generator):
+        return RoMoAligner(RoMoConfig(
+            vocab_size=cfg.vocab_size, n_mels=cfg.n_mels, dim=64, hidden=96,
+            max_duration=args.max_duration, window=args.window),
+            device=device, generator=generator)
+
+    def loss_fn(out, b, protos, n_mels):
+        # Reconstruction through the refinement posteriors (the objective
+        # that gives demo-mobo its quality): the marginal NLLs alone only
+        # shape energies, and within the anchor window the refined
+        # boundaries are otherwise unpinned.
+        rec = _recon_mse(out["soft_alignment"], protos, b, n_mels,
+                         feasible=out["refine_feasible"])
+        return rec + 0.1 * out["loss"]
+
+    corpus, out = _one_batch_demo(args, make_model, loss_fn,
+                                  "recon+rough+refine")
+    # hard_durations mean nothing where refine_feasible is False, so
+    # infeasible items must not pollute the refined row.
+    feas = out["refine_feasible"].cpu().numpy()
+    print(json.dumps({
+        "demo": "romo",
+        "refine_feasible": round(float(np.mean(feas)), 3),
+        "rough": _stage_metrics(corpus,
+                                out["rough_durations"].cpu().numpy()),
+        "refined": _stage_metrics(corpus,
+                                  out["hard_durations"].cpu().numpy(),
+                                  keep=feas),
+    }), flush=True)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    {"demo-ota": cmd_demo_ota, "demo-pauses": cmd_demo_pauses}[args.cmd](args)
+    {"demo-ota": cmd_demo_ota, "demo-pauses": cmd_demo_pauses,
+     "demo-mobo": cmd_demo_mobo, "demo-romo": cmd_demo_romo}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Flax param tree -> `OTAAligner` state_dict.
+"""Flax param tree -> `OTAAligner`, `MoBoAligner` or `RoMoAligner`
+state_dict.
 
-The JAX package's OTAAligner params (numpy arrays, e.g. from
+The JAX package's model params (numpy arrays, e.g. from
 `model.init(...)["params"]` or a restored checkpoint) become the port's
 `state_dict`:
 
@@ -9,8 +10,10 @@ The JAX package's OTAAligner params (numpy arrays, e.g. from
 * `embed/embedding` [V, H] is copied as it is; biases and the pause
   model's `pause_key` too.
 
-Unknown or missing keys raise, so a tree from another model family or
-configuration never loads half-way.
+Unknown or missing keys raise, so a tree from another configuration (a
+pause tree into a MoBo config, a tree without the reconstruction decoder
+into a config with it) never loads half-way. The three families share
+their encoders' keys; MoBo and RoMo have no `pause_key`.
 """
 from __future__ import annotations
 
@@ -19,7 +22,11 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .mobo import MoBoConfig
 from .ota import OTAConfig
+from .romo import RoMoConfig
+
+ModelConfig = OTAConfig | MoBoConfig | RoMoConfig
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -33,7 +40,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-def _expected_keys(config: OTAConfig) -> dict[str, str]:
+def _expected_keys(config: ModelConfig) -> dict[str, str]:
     """flax path -> state_dict key."""
     keys = {"text_encoder/embed/embedding": "text_encoder.embed.weight"}
     for enc in ("text_encoder", "mel_encoder"):
@@ -44,21 +51,26 @@ def _expected_keys(config: OTAConfig) -> dict[str, str]:
     if config.use_recon:
         keys["mel_decoder/kernel"] = "mel_decoder.weight"
         keys["mel_decoder/bias"] = "mel_decoder.bias"
-    if config.model_pauses:
+    if getattr(config, "model_pauses", False):
         keys["pause_key"] = "pause_key"
     return keys
 
 
 def flax_to_state_dict(params: Mapping,
-                       config: OTAConfig) -> dict[str, torch.Tensor]:
-    """Convert a flax OTAAligner param tree for `config`. A pause tree
+                       config: ModelConfig) -> dict[str, torch.Tensor]:
+    """Convert a flax OTAAligner, MoBoAligner or RoMoAligner param tree
+    for `config` (an OTAConfig, MoBoConfig or RoMoConfig). A pause tree
     does not load into a non-pause config, nor the other way round."""
+    if not isinstance(config, ModelConfig):
+        raise TypeError(f"expected an OTAConfig, MoBoConfig or RoMoConfig, "
+                        f"got {type(config).__name__}")
     flat = _flatten(params)
     expected = _expected_keys(config)
     unknown = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
     if unknown or missing:
-        raise KeyError(f"flax params do not match OTAConfig: unknown "
+        raise KeyError(f"flax params do not match "
+                       f"{type(config).__name__}: unknown "
                        f"{unknown}, missing {missing}")
     state = {}
     for path, key in expected.items():

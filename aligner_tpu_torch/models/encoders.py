@@ -67,3 +67,23 @@ class MelEncoder(nn.Module):
 
     def forward(self, mel: torch.Tensor, mask: torch.Tensor | None = None):
         return self.convs(mel, mask)
+
+
+@torch.no_grad()
+def reset_encoder_parameters(module: nn.Module,
+                             generator: torch.Generator | None = None):
+    """Redraw every parameter of an encoder-based aligner from `generator`
+    (seed 0 when None) at the scales of flax's default initialisers:
+    normal kernels and embeddings with variance 1/fan-in; biases and the
+    pause key start at zero."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for name, p in module.named_parameters():
+        if p.ndim == 1:                 # biases and the pause key
+            p.zero_()
+            continue
+        if name.endswith("embed.weight"):
+            fan_in = p.shape[1]
+        else:                           # conv [out, in, k], dense [out, in]
+            fan_in = p[0].numel()
+        p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)

@@ -39,7 +39,7 @@ from ..ops.prior import beta_binomial_log_prior
 from ..ops.skip_dp import (expand_prior_to_states, forward_sum_skip_loss,
                            mas_skip_path_frame_major, split_state_durations)
 from ..utils.masks import sequence_mask
-from .encoders import MelEncoder, TextEncoder
+from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,22 +100,10 @@ class OTAAligner(nn.Module):
                                                       device=device))
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Redraw every parameter from `generator` (seed 0 when None); the
         biases and the pause key start at zero."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for name, p in self.named_parameters():
-            if name.endswith("bias") or name == "pause_key":
-                p.zero_()
-                continue
-            if name.endswith("embed.weight"):
-                fan_in = p.shape[1]
-            else:                       # conv [out, in, k], dense [out, in]
-                fan_in = p[0].numel()
-            w = torch.randn(p.shape, generator=generator) * fan_in ** -0.5
-            p.copy_(w)
+        reset_encoder_parameters(self, generator)
 
     def forward(self, tokens: torch.Tensor, mel: torch.Tensor,
                 text_lengths: torch.Tensor, mel_lengths: torch.Tensor,

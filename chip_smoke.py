@@ -4,12 +4,14 @@
 
 Builds the package's CUDA kernels from `aligner_tpu_torch/csrc/` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, then
-drives the three main paths through the public entry points and checks
+drives the four main paths through the public entry points and checks
 that every kernel of each path was launched there: serving
 (`maximum_path`, `OTAAligner` at the CLI's default width, `BatchAligner`),
-training (`train_aligner` at the same width, checkpoints, `demo-ota`) and
-the pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
-`train_aligner` with a `pause_bias` curriculum, `demo-pauses`). Phases:
+training (`train_aligner` at the same width, checkpoints, `demo-ota`), the
+pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
+`train_aligner` with a `pause_bias` curriculum, `demo-pauses`) and the
+boundary-search path (`MoBoAligner`, `RoMoAligner`, `train_aligner` with
+their reconstruction objectives, `demo-mobo`, `demo-romo`). Phases:
 
   1. the card (nvidia-smi name and power limit)
   2. kernel build
@@ -38,6 +40,19 @@ the pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
      curriculum and a checkpoint round trip; launch counts on each; the
      pause step's time beside the pause-blind step's, and its profile
  14. `python -m aligner_tpu_torch demo-pauses --skip-blind --device cuda`
+ 15. H7 (MoBo alpha), H8 (MoBo backpointers and walk) and H9 (MoBo beta)
+     against mobo_alpha_plain, mobo_bp_plain and mobo_beta_plain at D = 32
+     and T_y1 = 1025 with edge items, and at D = 4 with another T_y1: live
+     cells rtol 1e-6 / atol 1e-5, dead cells below NEG / 2, backpointers
+     and durations equal; the backward of mobo_forward and of mobo_loss on
+     the card against the plain route's, rtol 1e-4 / atol 2e-5
+ 16. boundary-search path with every plain version patched to raise: the
+     MoBoAligner and RoMoAligner forward with hard boundaries (held
+     against the same models on the plain route), train_aligner for each
+     with its reconstruction objective and a checkpoint round trip; launch
+     counts on each; step times, both steps' profiles and the share of
+     the plain-PyTorch adjoint
+ 17. `python -m aligner_tpu_torch demo-mobo --device cuda` and `demo-romo`
 
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -82,6 +97,9 @@ DEMO_STEPS = 30
 PAUSE_UTTERANCES = 160
 ENTER_COSTS = (0.0, -1.2, 0.6)
 T_X_WIDE = 520                           # 2*520+1 = 1041 states > 1024 threads
+D_MOBO, WINDOW_ROMO = 32, 16              # BASELINE.json config 4
+MOBO_RTOL, MOBO_ATOL = 1e-6, 1e-5        # live cells, kernel vs plain
+MOBO_GRAD_RTOL, MOBO_GRAD_ATOL = 1e-4, 2e-5
 # Published peaks of the H100 SXM: HBM3 bytes/s, and float32 operations/s
 # outside the tensor cores (these sweeps have no matrix product).
 PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
@@ -387,6 +405,7 @@ def phase_times(dev):
     time to put beside them."""
     from aligner_tpu_torch.ops import forward_sum_kernel as fs
     from aligner_tpu_torch.ops import mas_kernel as mk
+    from aligner_tpu_torch.ops import mobo_kernel as mb
     from aligner_tpu_torch.ops import skip_dp_kernel as sk
     value, t_x, t_y = ragged(0, B_MAS, T_X, T_Y)
     v = torch.from_numpy(value).to(dev)
@@ -397,6 +416,9 @@ def phase_times(dev):
     sv, stx, sty = (torch.from_numpy(a).to(dev)
                     for a in skip_viterbi_inputs())
     slp_tm, salphas, stotal, sgtx, sgty, _ = skip_fs_inputs(dev, 0.0)
+    e_tm, mtx, mty = mobo_inputs(dev, 15, T_Y, D_MOBO)
+    cells = mobo_cells(mtx, mty, D_MOBO)
+    grid = 4 * T_X * B_OTA * (T_Y + 1)
     lattice = 4 * B_OTA * T_Y * T_X
     skip_lattice = 4 * B_OTA * T_Y * (2 * T_X + 1)
     # name: kernel call, plain call, (live cells, input lattices, output
@@ -427,6 +449,22 @@ def phase_times(dev):
                                              sgty),
             lambda: sk.gamma_skip_plain(slp_tm, salphas, stotal, sgtx, sgty),
             (live_cells(sgtx, sgty, True), 2, skip_lattice, 21)),
+        # Per live cell: the normalizer's window (D each of max, subtract,
+        # exp and add) and the same again for the inner LSE (H7, H9) or D
+        # compares for the max (H8); an exp counts as one operation, so
+        # the bound is a floor.
+        "mobo_alpha_kernel": (
+            lambda: mb.mobo_alpha(e_tm, mtx, D_MOBO),
+            lambda: mb.mobo_alpha_plain(e_tm, mtx, D_MOBO),
+            (cells, 1, grid, 8 * D_MOBO)),
+        "mobo_bp_kernel": (
+            lambda: mb.mobo_bp(e_tm, mtx, mty, D_MOBO),
+            lambda: mb.mobo_bp_plain(e_tm, mtx, mty, D_MOBO),
+            (cells, 1, grid + 4 * B_OTA * T_X, 5 * D_MOBO)),
+        "mobo_beta_kernel": (
+            lambda: mb.mobo_beta(e_tm, mtx, mty, D_MOBO),
+            lambda: mb.mobo_beta_plain(e_tm, mtx, mty, D_MOBO),
+            (cells, 1, grid, 8 * D_MOBO)),
     }
     times = {}
     for name, (kernel, plain, work) in runs.items():
@@ -445,8 +483,10 @@ def phase_times(dev):
            f"{durs_ms:.4f} ms; plain version {durs_plain:.2f} ms; bound "
            f"{durs_bound:.4f} ms by {by}")
     log(7, f"shapes: H1 B={B_MAS} {T_X}x{T_Y}; H2, H3 B={B_OTA} "
-           f"{T_X}x{T_Y}; H4-H6 B={B_OTA} {2 * T_X + 1} states x {T_Y}, "
-           f"all ragged; no library call computes any of them")
+           f"{T_X}x{T_Y}; H4-H6 B={B_OTA} {2 * T_X + 1} states x {T_Y}; "
+           f"H7-H9 B={B_OTA} {T_X} tokens x {T_Y + 1} positions, D="
+           f"{D_MOBO}, {cells} live cells; all ragged; no library call "
+           f"computes any of them")
     return times
 
 
@@ -543,6 +583,7 @@ TOKEN_KERNELS = ("mas_kernel", "forward_sum_alpha_kernel",
                  "forward_sum_grad_kernel")
 SKIP_KERNELS = ("mas_skip_kernel", "forward_sum_skip_alpha_kernel",
                 "forward_sum_skip_gamma_kernel")
+MOBO_KERNELS = ("mobo_alpha_kernel", "mobo_bp_kernel", "mobo_beta_kernel")
 
 
 def require_launches(where, launches, at_least, names=TOKEN_KERNELS):
@@ -964,7 +1005,7 @@ def plain_versions_refused():
     """While active, every plain version raises: the CUDA path must not
     reach one."""
     from aligner_tpu_torch.ops import (forward_sum_kernel, mas_kernel,
-                                       skip_dp_kernel)
+                                       mobo_kernel, skip_dp_kernel)
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on the CUDA path")
@@ -974,15 +1015,25 @@ def plain_versions_refused():
                (forward_sum_kernel, "gamma_plain"),
                (skip_dp_kernel, "mas_skip_plain"),
                (skip_dp_kernel, "alpha_skip_plain"),
-               (skip_dp_kernel, "gamma_skip_plain")]
-    saved = [getattr(module, name) for module, name in patched]
-    for module, name in patched:
-        setattr(module, name, refuse)
+               (skip_dp_kernel, "gamma_skip_plain"),
+               (mobo_kernel, "mobo_alpha_plain"),
+               (mobo_kernel, "mobo_bp_plain"),
+               (mobo_kernel, "mobo_beta_plain")]
+    with patched_attrs([(module, name, refuse) for module, name in patched]):
+        yield
+
+
+@contextlib.contextmanager
+def patched_attrs(patches):
+    """Set each (module, name, value) while active and restore it after."""
+    saved = [getattr(module, name) for module, name, _ in patches]
+    for module, name, value in patches:
+        setattr(module, name, value)
     try:
         yield
     finally:
-        for (module, name), fn in zip(patched, saved):
-            setattr(module, name, fn)
+        for (module, name, _), value in zip(patches, saved):
+            setattr(module, name, value)
 
 
 def skip_requests():
@@ -1198,6 +1249,347 @@ def plain_skip_loss(logp, tl, ml):
     return torch.mean(-torch.where(valid, total, 0.0) / ml.clamp(min=1))
 
 
+def mobo_inputs(dev, seed, T_y, D):
+    """The MoBo sweeps' inputs at B=16, 128 tokens x T_y frames, ragged and
+    feasible (t_x <= t_y <= t_x * D), with edge items 0-3: t_x = 1; a
+    full item (t_x = T_X, t_y = T_y, the end position is the grid's last);
+    an item without a boundary sequence (t_y > t_x * D); t_x = 0. Returns
+    the token-major grid of _prep_energies and the lengths."""
+    from aligner_tpu_torch.ops.mobo import _prep_energies
+    rng = np.random.default_rng(seed)
+    energies = rng.standard_normal((B_OTA, T_y, T_X)).astype(np.float32)
+    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
+    t_y = np.clip(rng.integers(T_y // 4, T_y + 1, B_OTA), t_x,
+                  np.minimum(t_x * D, T_y)).astype(np.int32)
+    t_x[:4] = [1, T_X, 4, 0]
+    t_y[:4] = [min(D, T_y) - 1, T_y, 4 * D + 40, T_y // 2]
+    tx = torch.from_numpy(t_x).to(dev)
+    ty = torch.from_numpy(t_y).to(dev)
+    return _prep_energies(torch.from_numpy(energies).to(dev), tx, ty), tx, ty
+
+
+def mobo_feasible(t_x, t_y, D):
+    return (t_x >= 1) & (t_x <= t_y) & (t_y <= t_x * D)
+
+
+def mobo_cells(t_x, t_y, D):
+    """Grid cells that the items with a boundary sequence need: t_x
+    tokens by t_y + 1 positions."""
+    return int((t_x.long() * (t_y + 1) * mobo_feasible(t_x, t_y, D)).sum())
+
+
+@contextlib.contextmanager
+def plain_route():
+    """While active, the MoBo ops take the plain versions on any device:
+    the reference that the kernels' route is held against."""
+    from aligner_tpu_torch.ops import mobo, mobo_kernel
+    with patched_attrs([
+            (mobo, "mobo_alpha", mobo_kernel.mobo_alpha_plain),
+            (mobo, "mobo_bp", mobo_kernel.mobo_bp_plain),
+            (mobo, "mobo_beta", mobo_kernel.mobo_beta_plain)]):
+        yield
+
+
+def require_live_close(name, got, want):
+    """Live cells (above NEG / 2 in the plain version) within MOBO_RTOL /
+    MOBO_ATOL, dead cells below NEG / 2 on both sides; returns the max abs
+    difference on live cells."""
+    from aligner_tpu_torch.ops.mobo_kernel import NEG
+    live = want > 0.5 * NEG
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: not finite")
+    torch.testing.assert_close(got[live], want[live], rtol=MOBO_RTOL,
+                               atol=MOBO_ATOL)
+    if not (got[~live] <= 0.5 * NEG).all():
+        raise AssertionError(f"{name}: a dead cell rose above NEG / 2")
+    return (got[live] - want[live]).abs().max().item() if live.any() else 0.0
+
+
+def mobo_grads(energies, tx, ty, D, weights):
+    """Gradients in the energies of a weighted sum over every output of
+    mobo_forward, and of mobo_loss, on the items that `weights` keeps."""
+    from aligner_tpu_torch.ops.mobo import mobo_forward, mobo_loss
+    from aligner_tpu_torch.ops.mobo_kernel import NEG
+    keep, w_g, w_d, w_p = weights
+    x = energies.clone().requires_grad_()
+    out = mobo_forward(x, tx, ty, D)
+    lb = torch.where(out["log_boundaries"] > 0.5 * NEG,
+                     out["log_boundaries"], 0.0)
+    ((out["loss"] * keep).sum()
+     + (w_g * out["soft_alignment"] * keep[:, None, None]).sum()
+     + (w_d * out["expected_durations"] * keep[:, None]).sum()
+     + (w_p * lb * keep[:, None, None]).sum()).backward()
+    y = energies[keep > 0].clone().requires_grad_()
+    mobo_loss(y, tx[keep > 0], ty[keep > 0], D).backward()
+    return x.grad, y.grad
+
+
+def phase_mobo_kernels(dev):
+    """H7, H8 and H9 against their plain versions on the card; returns
+    their max abs differences (H8: the count of unequal backpointers)."""
+    from aligner_tpu_torch.ops import mobo_kernel as mb
+    errs = [0.0, 0.0, 0.0]
+    for seed, T_y, D in ((15, T_Y, D_MOBO), (16, 300, 4)):
+        e_tm, tx, ty = mobo_inputs(dev, seed, T_y, D)
+        logB = mb.mobo_alpha(e_tm, tx, D)
+        bp, durs = mb.mobo_bp(e_tm, tx, ty, D)
+        betas = mb.mobo_beta(e_tm, tx, ty, D)
+        torch.cuda.synchronize()
+        want_bp, want_durs = mb.mobo_bp_plain(e_tm, tx, ty, D)
+        errs[0] = max(errs[0], require_live_close(
+            "H7", logB, mb.mobo_alpha_plain(e_tm, tx, D)))
+        errs[2] = max(errs[2], require_live_close(
+            "H9", betas, mb.mobo_beta_plain(e_tm, tx, ty, D)))
+        xs = torch.arange(T_X, device=dev)[:, None, None]
+        live_tokens = (xs < tx[None, :, None]).expand_as(bp)
+        errs[1] = max(errs[1], float((bp != want_bp)[live_tokens].sum()))
+        require_equal(f"H8 backpointers D={D}", bp * live_tokens,
+                      want_bp * live_tokens)
+        if bp[~live_tokens].any():
+            raise AssertionError("H8: a token >= t_x has a backpointer")
+        require_equal(f"H8 durations D={D}", durs, want_durs)
+        ok = mobo_feasible(tx, ty, D)
+        inside = (xs[:, 0].T < tx[:, None])
+        if not (torch.equal(durs.sum(1)[ok], ty[ok].long())
+                and ((durs >= 1) & (durs <= D))[inside & ok[:, None]].all()
+                and not durs[~inside].any()):
+            raise AssertionError(f"H8 D={D}: durations of a feasible item do "
+                                 f"not tile its frames in steps of 1..D")
+        total = logB[-1].gather(1, ty.long()[:, None])[:, 0]
+        if not (torch.equal(total > 0.5 * mb.NEG, ok)
+                and torch.isfinite(total).all()):
+            raise AssertionError(f"H7 D={D}: the log-marginal is live on "
+                                 f"{(total > 0.5 * mb.NEG).tolist()}, the "
+                                 f"items with a boundary sequence are "
+                                 f"{ok.tolist()}")
+        rng = np.random.default_rng(seed + 100)
+        energies = e_tm[:, :, 1:].permute(1, 2, 0).contiguous()
+        weights = (ok.float(), *(torch.from_numpy(rng.standard_normal(shape)
+                                                  .astype(np.float32)).to(dev)
+                                 for shape in ((B_OTA, T_y, T_X),
+                                               (B_OTA, T_X),
+                                               (B_OTA, T_X, T_y))))
+        got = mobo_grads(energies, tx, ty, D, weights)
+        with plain_route():
+            want = mobo_grads(energies, tx, ty, D, weights)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("mobo_forward", "mobo_loss"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} backward is not finite")
+            torch.testing.assert_close(g, w, rtol=MOBO_GRAD_RTOL,
+                                       atol=MOBO_GRAD_ATOL)
+        grad_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        log(15, f"H7, H8, H9 D={D}: B={B_OTA} {T_X} tokens x {T_y + 1} "
+                f"positions with edge items (t_x=1, full, no boundary "
+                f"sequence, t_x=0): live cells within rtol {MOBO_RTOL} / "
+                f"atol {MOBO_ATOL} of mobo_alpha_plain and mobo_beta_plain "
+                f"(max abs err {errs[0]:.3g} and {errs[2]:.3g}), dead cells "
+                f"below NEG / 2; backpointers on tokens < t_x and durations "
+                f"equal to mobo_bp_plain's; mobo_forward's and mobo_loss's "
+                f"backward within rtol {MOBO_GRAD_RTOL} / atol "
+                f"{MOBO_GRAD_ATOL} of the plain route's (max abs err "
+                f"{grad_err:.3g})")
+    return errs
+
+
+def mobo_objective(out, step_no):
+    """The MoBo training objective of the train command: reconstruction
+    pins the boundaries, the boundary NLL shapes the energies."""
+    return (out["loss_recon"] + 0.1 * out["loss_mobo"],
+            {"loss_mobo": out["loss_mobo"], "loss_recon": out["loss_recon"]})
+
+
+def romo_objective(out, step_no):
+    return (out["loss_recon"] + 0.1 * out["loss"],
+            {"loss_rough": out["loss_rough"],
+             "loss_refine": out["loss_refine"],
+             "loss_recon": out["loss_recon"],
+             "refine_feasible": out["refine_feasible"].float().mean()})
+
+
+def no_hard_decode(step_no):
+    return {"compute_hard": False}
+
+
+@contextlib.contextmanager
+def adjoint_timed(times):
+    """While active, each call of the MoBo adjoint is synchronised before
+    and after and its host-clock milliseconds are appended to `times`."""
+    from aligner_tpu_torch.ops import mobo
+    adjoint = mobo._mobo_ab_adjoint
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad = adjoint(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return grad
+
+    with patched_attrs([(mobo, "_mobo_ab_adjoint", timed)]):
+        yield
+
+
+def phase_mobo_path(dev):
+    """Drive the MoBo and RoMo entry points with every plain version
+    refused; return the kernel launches made there."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train import (create_train_state,
+                                         make_train_step,
+                                         restore_checkpoint)
+    from aligner_tpu_torch.train.checkpoint import load_run_config
+    from aligner_tpu_torch.train.loop import train_aligner
+    width = dict(vocab_size=VOCAB, n_mels=N_MELS, dim=DIM, hidden=HIDDEN,
+                 max_duration=D_MOBO, use_recon=True)
+    families = {
+        "MoBo": (at.MoBoAligner, at.MoBoConfig(**width), mobo_objective,
+                 {"mobo_alpha_kernel": 1, "mobo_beta_kernel": 1}),
+        "RoMo": (at.RoMoAligner, at.RoMoConfig(window=WINDOW_ROMO, **width),
+                 romo_objective,
+                 {"forward_sum_alpha_kernel": 1, "forward_sum_grad_kernel": 1,
+                  "mobo_alpha_kernel": 1, "mobo_beta_kernel": 1}),
+    }
+    batches, _ = train_batches()
+    first = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+    inputs = [first[k] for k in ("tokens", "mel", "text_lengths",
+                                 "mel_lengths")]
+    total = {}
+    for family, (cls, config, objective, per_step) in families.items():
+        model = cls(config, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        trained = cls(config, device=dev)
+        lines = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        at.reset_kernel_launches()
+        with plain_versions_refused(), tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = model(*inputs)
+            torch.cuda.synchronize()
+            forward = at.kernel_launches()
+            state, history = train_aligner(
+                trained, batches, steps=TRAIN_STEPS, device=dev,
+                learning_rate=LR, log_every=1, checkpoint_dir=ckpt,
+                apply_extra=no_hard_decode, objective=objective,
+                log_fn=lambda line: lines.append((time.perf_counter(), line)))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = at.kernel_launches()
+            model_class = load_run_config(ckpt)["model_class"]
+            fresh = cls(config, device=dev,
+                        generator=torch.Generator().manual_seed(1))
+            restored = restore_checkpoint(ckpt, create_train_state(
+                fresh, learning_rate=LR))
+            trained_params = trained.state_dict()
+            for key, value in fresh.state_dict().items():
+                if not torch.equal(value, trained_params[key]):
+                    raise AssertionError(f"{family}: restored {key} differs")
+            step = make_train_step(fresh, apply_extra=no_hard_decode,
+                                   objective=objective)
+            sync_ms = step_ms(step, restored, first, 10)
+            adjoint_ms = []
+            with adjoint_timed(adjoint_ms):
+                timed_ms = step_ms(step, restored, first, 5)
+            profile_step(16, f"{family} B={B_OTA}", step, restored, first)
+        for name in launches:
+            total[name] = total.get(name, 0) + launches[name]
+        shapes = sorted({tuple(b["mel"].shape[:2]) for b in batches})
+        log(16, f"{family}Aligner forward B={B_OTA} at "
+                f"{VOCAB}/{N_MELS}/{DIM}/{HIDDEN} f32, D={D_MOBO}"
+                f"{f', window {WINDOW_ROMO}' if family == 'RoMo' else ''}, "
+                f"use_recon, with hard boundaries; train_aligner "
+                f"{TRAIN_STEPS} steps on {len(batches)} batches of "
+                f"[B, T_mel] {shapes}, in {seconds:.2f} s, no plain version "
+                f"reached; kernel launches {launches}")
+        want_forward = {**per_step, "mobo_bp_kernel": 1}
+        if forward != want_forward:
+            raise AssertionError(f"the {family} forward launched {forward}, "
+                                 f"expected {want_forward}")
+        training = {k: launches[k] - forward.get(k, 0) for k in launches}
+        if training != {**{k: n * TRAIN_STEPS for k, n in per_step.items()},
+                        "mobo_bp_kernel": 0}:
+            raise AssertionError(f"{family} training launched {training}")
+        if model_class != family or restored.step != TRAIN_STEPS + 28:
+            raise AssertionError(f"config.json says {model_class!r}; the "
+                                 f"restored and timed state is at step "
+                                 f"{restored.step}")
+
+        with plain_route(), torch.no_grad():
+            want = model(*inputs)
+        torch.cuda.synchronize()
+        tl, ml = first["text_lengths"], first["mel_lengths"]
+        feasible = out.get("refine_feasible",
+                           mobo_feasible(tl, ml, D_MOBO))
+        if not torch.equal(feasible, want.get("refine_feasible", feasible)):
+            raise AssertionError(f"{family}: refine_feasible differs from "
+                                 f"the plain route's")
+        if not feasible.any():
+            raise AssertionError(f"{family}: no item is feasible")
+        for key, val in out.items():
+            got_f, want_f = val, want[key]
+            if val.ndim and val.shape[0] == len(feasible):
+                got_f, want_f = val[feasible], want[key][feasible]
+            if key == "log_boundaries":    # dead cells hold about NEG
+                live = want_f > -1e14
+                got_f, want_f = got_f[live], want_f[live]
+            if not torch.isfinite(got_f.float()).all():
+                raise AssertionError(f"{family} {key} is not finite")
+            if key.startswith("hard_") or val.dtype == torch.bool:
+                require_equal(f"{family} {key} vs the plain route", got_f,
+                              want_f)
+            else:
+                torch.testing.assert_close(got_f, want_f, rtol=1e-5,
+                                           atol=1e-5)
+        durs = out["hard_durations"][feasible]
+        if not torch.equal(durs.sum(1), ml[feasible].long()):
+            raise AssertionError(f"{family}: hard durations do not sum to "
+                                 f"the mel lengths")
+        if not torch.equal(out["hard_path"].sum(1)[feasible].int(), durs):
+            raise AssertionError(f"{family}: hard_path and hard_durations "
+                                 f"disagree")
+        train = [r for r in history if "loss" in r]
+        for rec in history:
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"a metric is not finite: {rec}")
+        if len(train) != TRAIN_STEPS:
+            raise AssertionError(f"{len(train)} train records")
+        if not train[-1]["loss"] < train[0]["loss"]:
+            raise AssertionError(f"{family} loss did not fall: "
+                                 f"{train[0]['loss']} -> {train[-1]['loss']}")
+        stamps = [t for t, _ in lines]
+        step_wall = statistics.median(
+            (b - a) * 1e3 for a, b in zip(stamps[3:], stamps[4:]))
+        adjoint = statistics.median(adjoint_ms)
+        log(16, f"{family}: forward equal to the plain route's on "
+                f"{int(feasible.sum())} feasible items of {B_OTA} (soft "
+                f"outputs rtol 1e-5 / atol 1e-5, hard outputs equal, "
+                f"durations sum to the mel lengths); loss "
+                f"{train[0]['loss']:.4f} -> {train[-1]['loss']:.4f} (recon "
+                f"{train[0]['loss_recon']:.4f} -> "
+                f"{train[-1]['loss_recon']:.4f}); checkpoint restored with "
+                f"equal parameters, model_class {model_class!r}; median wall "
+                f"{step_wall:.2f} ms per step in the loop; synchronised "
+                f"step, median of 10, {sync_ms:.2f} ms at "
+                f"{tuple(first['mel'].shape[:2])}; with the adjoint "
+                f"synchronised apart, median of 5: step {timed_ms:.2f} ms, "
+                f"adjoint {adjoint:.2f} ms ({adjoint / timed_ms:.3f} of "
+                f"it); peak device memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return total
+
+
+def phase_demo_mobo(dev):
+    rec = run_demo(17, dev, "demo-mobo")
+    if rec.get("demo") != "mobo" or not {"duration_exact", "duration_mae",
+                                         "boundary_f1_tol2"} <= set(rec):
+        raise AssertionError(f"demo-mobo printed {rec}")
+    rec = run_demo(17, dev, "demo-romo")
+    if rec.get("demo") != "romo" or not {"refine_feasible", "rough",
+                                         "refined"} <= set(rec):
+        raise AssertionError(f"demo-romo printed {rec}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU instead",
@@ -1222,6 +1614,9 @@ def main():
     skip_alpha_err, skip_gamma_err = phase_skip_sums(dev)
     pauses = phase_pause_path(dev, blind_step_ms)
     phase_demo_pauses(dev)
+    mobo_errs = phase_mobo_kernels(dev)
+    mobo = phase_mobo_path(dev)
+    phase_demo_mobo(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -1235,10 +1630,16 @@ def main():
             ("forward_sum_skip_alpha_kernel", "skip_dp.cu",
              "skip_dp_pallas.py:476", skip_alpha_err),
             ("forward_sum_skip_gamma_kernel", "skip_dp.cu",
-             "skip_dp_pallas.py:524", skip_gamma_err)]:
+             "skip_dp_pallas.py:524", skip_gamma_err),
+            ("mobo_alpha_kernel", "mobo.cu", "mobo_pallas.py:57",
+             mobo_errs[0]),
+            ("mobo_bp_kernel", "mobo.cu", "mobo_pallas.py:84", mobo_errs[1]),
+            ("mobo_beta_kernel", "mobo.cu", "mobo_pallas.py:114",
+             mobo_errs[2])]:
         by_path = {"serving": serving.get(name, 0),
                    "training": training.get(name, 0),
-                   "pauses": pauses.get(name, 0)}
+                   "pauses": pauses.get(name, 0),
+                   "mobo": mobo.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

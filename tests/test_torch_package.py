@@ -18,8 +18,8 @@ import pytest
 import torch
 
 import aligner_tpu_torch as at
-from aligner_tpu_torch.ops import (forward_sum_kernel, mas_kernel, skip_dp,
-                                   skip_dp_kernel)
+from aligner_tpu_torch.ops import (forward_sum_kernel, mas_kernel, mobo,
+                                   mobo_kernel, skip_dp, skip_dp_kernel)
 from aligner_tpu_torch.ops.forward_sum import (_masked_logp,
                                                _total_from_alphas,
                                                _valid_items, forward_sum_loss)
@@ -61,6 +61,28 @@ def small_ota(device, **config):
         return model(*[t.to(device) for t in small_batch()])
 
 
+MOBO_FAMILIES = (
+    (at.MoBoAligner, at.MoBoConfig(vocab_size=20, dim=16, hidden=32,
+                                   max_duration=6, use_recon=True)),
+    (at.RoMoAligner, at.RoMoConfig(vocab_size=20, dim=16, hidden=32,
+                                   max_duration=6, window=8,
+                                   use_recon=True)))
+
+
+def mobo_ragged(seed, B, T_x, T_y, D):
+    """Token-major grid [T_x, B, T_y + 1] of feasible ragged items with
+    the edge items: t_x = 1; a full item; no boundary sequence
+    (t_y > t_x * D); t_x = 0."""
+    rng = np.random.default_rng(seed)
+    energies = rng.standard_normal((B, T_y, T_x)).astype(np.float32)
+    t_x = rng.integers(max(1, -(-T_y // D)), T_x + 1, B).astype(np.int32)
+    t_y = np.clip(rng.integers(1, T_y + 1, B), t_x,
+                  np.minimum(t_x * D, T_y)).astype(np.int32)
+    t_x[:4] = [1, T_x, 2, 0]
+    t_y[:4] = [min(D, T_y), T_y, min(2 * D + 3, T_y), T_y // 2]
+    return energies, t_x, t_y
+
+
 def skip_ragged(seed, B, T_x, T_y):
     """State-major lattice [B, 2*T_x+1, T_y] with the contract's edge
     items: t_x > t_y, t_x = 0, t_x = 1, t_x = t_y, and a tie-only item."""
@@ -91,7 +113,9 @@ def test_import_pulls_in_no_jax():
             "             'data.prefetch', 'data.synthetic',\n"
             "             'data.batching', 'utils.eval', 'cli',\n"
             "             'ops.skip_dp', 'ops.skip_dp_kernel',\n"
-            "             'ops.skip_dp_reference'):\n"
+            "             'ops.skip_dp_reference', 'ops.mobo',\n"
+            "             'ops.mobo_kernel', 'models.mobo', 'models.romo',\n"
+            "             'models.convert'):\n"
             "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -113,6 +137,9 @@ def test_cpu_route_launches_no_kernel():
     small_ota("cpu", model_pauses=True)
     at.SkipBatchAligner(max_text=3, max_mel=15, max_batch=2, device="cpu") \
         .align([value[1, :5, :7]])
+    for cls, config in MOBO_FAMILIES:
+        out = cls(config)(*small_batch())
+        (out["loss_recon"] + out.get("loss", out.get("loss_mobo"))).backward()
     assert at.kernel_launches() == {}
 
 
@@ -256,6 +283,85 @@ def test_skip_sweep_kernels_match_plain(cuda, seed, B, T_x, T_y, cost):
     torch.testing.assert_close(
         x.grad, -want.transpose(0, 1) * valid[:, None, None], rtol=1e-5,
         atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,B,T_x,T_y,D", [(20, 6, 12, 40, 6),
+                                              (21, 5, 128, 300, 4),
+                                              (22, 4, 40, 1100, 32)])
+def test_mobo_kernels_match_plain(cuda, seed, B, T_x, T_y, D):
+    """H7 and H9 within rtol 1e-6 / atol 1e-5 of the plain sweeps on live
+    cells and below NEG / 2 on dead ones; H8's backpointers equal on
+    tokens < t_x and 0 past them, its walk's durations equal; the last
+    case strides threads over T_y1 = 1101 > 1024, the second has an odd
+    T_y1 that is no multiple of the block size."""
+    energies, t_x, t_y = mobo_ragged(seed, B, T_x, T_y, D)
+    tx, ty = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
+    e_tm = mobo._prep_energies(torch.from_numpy(energies).to(cuda), tx, ty)
+    for got, want in (
+            (mobo_kernel.mobo_alpha(e_tm, tx, D),
+             mobo_kernel.mobo_alpha_plain(e_tm, tx, D)),
+            (mobo_kernel.mobo_beta(e_tm, tx, ty, D),
+             mobo_kernel.mobo_beta_plain(e_tm, tx, ty, D))):
+        live = want > 0.5 * mobo_kernel.NEG
+        torch.testing.assert_close(got[live], want[live], rtol=1e-6,
+                                   atol=1e-5)
+        assert (got[~live] <= 0.5 * mobo_kernel.NEG).all()
+    bp, durs = mobo_kernel.mobo_bp(e_tm, tx, ty, D)
+    want_bp, want_durs = mobo_kernel.mobo_bp_plain(e_tm, tx, ty, D)
+    live_tokens = torch.arange(T_x, device=cuda)[:, None, None] \
+        < tx[None, :, None]
+    torch.testing.assert_close(bp * live_tokens, want_bp * live_tokens,
+                               rtol=0, atol=0)
+    assert not (bp * ~live_tokens).any()
+    torch.testing.assert_close(durs, want_durs, rtol=0, atol=0)
+    ok = (tx >= 1) & (ty <= tx * D)
+    assert torch.equal(durs.sum(1)[ok], ty[ok].long())
+    # a transposed view is read in place
+    view = e_tm.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    torch.testing.assert_close(mobo_kernel.mobo_alpha(view, tx, D),
+                               mobo_kernel.mobo_alpha(e_tm, tx, D),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_mobo_path_never_runs_plain(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for module, name in ((forward_sum_kernel, "alpha_plain"),
+                         (forward_sum_kernel, "gamma_plain"),
+                         (mobo_kernel, "mobo_alpha_plain"),
+                         (mobo_kernel, "mobo_bp_plain"),
+                         (mobo_kernel, "mobo_beta_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    at.reset_kernel_launches()
+    batch = dict(zip(("tokens", "mel", "text_lengths", "mel_lengths"),
+                     (t.to(cuda) for t in small_batch())))
+    for cls, config in MOBO_FAMILIES:
+        model = cls(config, device=cuda)
+        with torch.no_grad():
+            out = model(*batch.values())
+        assert torch.equal(out["hard_durations"].sum(1),
+                           batch["mel_lengths"])
+        state = create_train_state(model, learning_rate=1e-3)
+        step = make_train_step(
+            model, apply_extra=lambda n: {"compute_hard": False},
+            objective=lambda out, n: (
+                out["loss_recon"] + 0.1 * out.get("loss", out.get(
+                    "loss_mobo")), {"loss_recon": out["loss_recon"]}))
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        assert all(torch.isfinite(torch.as_tensor(v))
+                   for v in metrics.values())
+    x = torch.randn((3, 30, 9), device=cuda, requires_grad=True)
+    mobo.mobo_loss(x, batch["text_lengths"], batch["mel_lengths"],
+                   6).backward()
+    assert torch.isfinite(x.grad).all()
+    torch.cuda.synchronize()
+    assert at.kernel_launches() == {
+        "mobo_alpha_kernel": 7, "mobo_beta_kernel": 7, "mobo_bp_kernel": 2,
+        "forward_sum_alpha_kernel": 3, "forward_sum_grad_kernel": 3}
 
 
 @pytest.mark.cuda

@@ -60,6 +60,14 @@ _SIGNATURES = {
                        _I32, _I32, _P],
     "mobo_beta_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I32, _I32,
                          _I32, _P],
+    "mas_walk_stage_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                              _I32, _P],
+    "mas_walk_idx_launch": [_P, _P, _P, _P, _I32, _I32, _I32, _P],
+    "mas_expand_launch": [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
+    "mas_bits_chains_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I32,
+                               _I32, _I32, _F32, _P],
+    "mas_walk_chains_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                               _I32, _I32, _P],
 }
 
 _LOCK = threading.Lock()
@@ -165,6 +173,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.aligner_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def card_label(index: int = 0) -> str:
+    """Name and power limit of card `index`, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them: what every time measured on the card is written beside."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def kernel_launches() -> dict[str, int]:

@@ -5,6 +5,8 @@
     python -m aligner_tpu_torch demo-pauses [--steps N] [--skip-blind] ...
     python -m aligner_tpu_torch demo-mobo [--steps N] [--max-duration D] ...
     python -m aligner_tpu_torch demo-romo [--steps N] [--window W] ...
+    python -m aligner_tpu_torch bench-mas [--batch B] [--t-text N]
+                                          [--t-mel N] [--route R|all]
 
 `demo-ota` trains the OTA aligner on the synthetic corpus (known
 ground-truth durations) and prints duration accuracy and boundary F1 as
@@ -15,7 +17,9 @@ boundary-search aligner on one synthetic batch with the reconstruction
 objective and prints the quality of its hard boundaries; `demo-romo`
 trains the RoMo aligner (rough OTA anchors, then a windowed MoBo
 refinement) and prints the rough and the refined stage's duration
-quality. All have the flags and the flow of aligner_tpu's subcommands of
+quality. `bench-mas` gates and times the batched MAS routes and prints one
+JSON line per route (`bench_mas.py`). All have the flags and the flow of
+aligner_tpu's subcommands of
 the same names, and run on `--device` (default `cuda`, which raises where
 no GPU is present; `--device cpu` runs every kernel's plain version). The
 other subcommands of aligner_tpu's CLI are not ported yet (ROADMAP.md).
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -151,6 +156,23 @@ def build_parser():
                    help="log-cost per pause entered (a pause-count "
                         "prior; prefer it at serving time, see "
                         "SkipBatchAligner)")
+    p = sub.add_parser(
+        "bench-mas",
+        help="MAS paths/s on one GPU, each route behind a bit-identity "
+             "gate against the numpy oracle; one JSON line per route")
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--t-text", type=int, default=128)
+    p.add_argument("--t-mel", type=int, default=1024)
+    p.add_argument("--route", default="fused",
+                   choices=("fused", "two_pass", "stage", "split", "chains2",
+                            "chains4", "all"),
+                   help="fused: the default single launch; two_pass: bits, "
+                        "then the walk alone; stage, split, chainsK: the "
+                        "two-pass variants (mas_path's form and chains); "
+                        "all: every route, the default one last")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; an error line and exit 1 where "
+                        "there is no GPU) or cpu (the plain versions)")
     return ap
 
 
@@ -417,10 +439,20 @@ def cmd_demo_romo(args):
     }), flush=True)
 
 
+def cmd_bench_mas(args):
+    from . import bench_mas
+    code = bench_mas.run(batch=args.batch, t_text=args.t_text,
+                         t_mel=args.t_mel, route=args.route,
+                         device=args.device)
+    if code:
+        sys.exit(code)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     {"demo-ota": cmd_demo_ota, "demo-pauses": cmd_demo_pauses,
-     "demo-mobo": cmd_demo_mobo, "demo-romo": cmd_demo_romo}[args.cmd](args)
+     "demo-mobo": cmd_demo_mobo, "demo-romo": cmd_demo_romo,
+     "bench-mas": cmd_bench_mas}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -17,8 +17,10 @@
 //   bit[x,y] = (x > 0) & ((x == y) | (cum[x,y-1] < cum[x-1,y-1]))
 //   walk:      index = t_x-1; for y = t_y-1..0: path[index,y] = 1;
 //              index -= bit[index,y]
-// The cumulative column starts at 0. Cells outside the reachable band are
-// computed but never read by the walk, so no band mask is needed; cells at
+// The cumulative column starts at 0. Cells outside the reachable band
+// (x > y, or x < t_x - (t_y - y)) are computed but never read by the walk
+// and no in-band cell depends on them; their bits are stored as 0, so the
+// bit lattice is a defined result when it is returned on its own. Cells at
 // x >= t_x or y >= t_y are not computed at all (nothing in range depends on
 // them). Bit-identity rests on `fmaxf` then one rounded f32 add: the file
 // is built without --use_fast_math and has no multiply to contract.
@@ -32,11 +34,27 @@
 // short per step (two shared loads, a max, an add, a compare) and runs
 // items in parallel, one block each. Under-filling the 132 SMs at small B,
 // bit-packing, bits in shared memory and a parallel walk are left for
-// later work.
+// later work. Timed apart on an NVIDIA H100 80GB HBM3, 700.00 W, at B=32,
+// 128x1024 ragged (chip_smoke.py phase 7, the range over three runs), the
+// sweep alone takes 0.195-0.196 ms and the walk alone 0.195-0.202 ms (its
+// 16.8 MB zero fill included) of the fused 0.355-0.362 ms.
+//
+// The kernel also runs as either half alone, for the two-pass route
+// (mas_pallas_bits_nat + mas_pallas_backtrack_nat, form="cmp"): with no
+// `path` and no `durations` it stops after the forward sweep and leaves the
+// bits (the caller zero-fills them, so that cells it does not compute are
+// 0); with no `value` it skips the sweep and walks bits it is given.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// One step of the walk: down a token where the bit is set. Any non-zero
+// byte counts as set and row 0 never steps, so bits handed to the walk
+// alone cannot take it out of the lattice.
+__device__ __forceinline__ int step(uint8_t bit, int index) {
+  return index - ((bit != 0 && index > 0) ? 1 : 0);
+}
 
 __global__ void mas_kernel(const float* __restrict__ value,
                            long long sv_b, long long sv_x, long long sv_y,
@@ -54,45 +72,49 @@ __global__ void mas_kernel(const float* __restrict__ value,
   // Items outside 1 <= t_x <= t_y keep the zero-filled output.
   if (tx < 1 || tx > ty || tx > T_x || ty > T_y) return;
 
-  const float* v = value + b * sv_b;
   uint8_t* bits_b = bits + static_cast<long long>(b) * T_y * T_x;
-  float* prev = cols;
-  float* cur = cols + T_x;
 
-  for (int x = threadIdx.x; x < tx; x += blockDim.x) prev[x] = 0.f;
-  __syncthreads();
+  if (value != nullptr) {
+    const float* v = value + b * sv_b;
+    float* prev = cols;
+    float* cur = cols + T_x;
 
-  for (int y = 0; y < ty; ++y) {
-    for (int x = threadIdx.x; x < tx; x += blockDim.x) {
-      const float p = prev[x];
-      const float ps = x > 0 ? prev[x - 1] : 0.f;
-      const float v_cur = (x == y) ? max_neg_val : p;
-      const float v_prev = (x == 0) ? (y == 0 ? 0.f : max_neg_val) : ps;
-      cur[x] = fmaxf(v_cur, v_prev) + v[x * sv_x + y * sv_y];
-      bits_b[static_cast<long long>(y) * T_x + x] =
-          (x > 0) && ((x == y) || (p < ps));
-    }
-    // One barrier per column: the next step reads `cur` as `prev` and
-    // overwrites the old `prev`, whose reads all happened before this.
+    for (int x = threadIdx.x; x < tx; x += blockDim.x) prev[x] = 0.f;
     __syncthreads();
-    float* t = prev;
-    prev = cur;
-    cur = t;
+
+    for (int y = 0; y < ty; ++y) {
+      const int lo = tx - (ty - y);  // lowest row the walk can reach at y
+      for (int x = threadIdx.x; x < tx; x += blockDim.x) {
+        const float p = prev[x];
+        const float ps = x > 0 ? prev[x - 1] : 0.f;
+        const float v_cur = (x == y) ? max_neg_val : p;
+        const float v_prev = (x == 0) ? (y == 0 ? 0.f : max_neg_val) : ps;
+        cur[x] = fmaxf(v_cur, v_prev) + v[x * sv_x + y * sv_y];
+        bits_b[static_cast<long long>(y) * T_x + x] =
+            (x > 0) && (x <= y) && (x >= lo) && ((x == y) || (p < ps));
+      }
+      // One barrier per column: the next step reads `cur` as `prev` and
+      // overwrites the old `prev`, whose reads all happened before this.
+      __syncthreads();
+      float* t = prev;
+      prev = cur;
+      cur = t;
+    }
   }
 
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x != 0 || (path == nullptr && durations == nullptr)) return;
   int index = tx - 1;
   if (path != nullptr) {
     float* p = path + b * sp_b;
     for (int y = ty - 1; y >= 0; --y) {
       p[index * sp_x + y * sp_y] = 1.f;
-      index -= bits_b[static_cast<long long>(y) * T_x + index];
+      index = step(bits_b[static_cast<long long>(y) * T_x + index], index);
     }
   } else {
     int* d = durations + static_cast<long long>(b) * T_x;
     for (int y = ty - 1; y >= 0; --y) {
       d[index] += 1;
-      index -= bits_b[static_cast<long long>(y) * T_x + index];
+      index = step(bits_b[static_cast<long long>(y) * T_x + index], index);
     }
   }
 }
@@ -100,18 +122,23 @@ __global__ void mas_kernel(const float* __restrict__ value,
 }  // namespace
 
 // value: f32 lattice read as [B, T_x, T_y] through element strides
-// sv_*; t_x, t_y: int32 [B]; bits: uint8 scratch [B, T_y, T_x]. Exactly
+// sv_*; t_x, t_y: int32 [B]; bits: uint8 [B, T_y, T_x], contiguous. At most
 // one of `path` (f32, zero-filled, written through strides sp_*) and
-// `durations` (int32 [B, T_x], zero-filled) is non-null. Returns
-// cudaGetLastError() after the launch.
+// `durations` (int32 [B, T_x], zero-filled) is non-null. With both null
+// the launch is the forward sweep alone and `bits` (zero-filled) is its
+// result; with `value` null it is the walk alone over the `bits` given.
+// Returns cudaGetLastError() after the launch.
 extern "C" int mas_launch(const float* value, long long sv_b, long long sv_x,
                           long long sv_y, const int* t_x, const int* t_y,
                           uint8_t* bits, float* path, long long sp_b,
                           long long sp_x, long long sp_y, int* durations,
                           int B, int T_x, int T_y, float max_neg_val,
                           void* stream) {
-  const int threads = T_x >= 1024 ? 1024 : ((T_x + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(T_x) * sizeof(float);
+  // The walk alone needs one thread per item and no columns.
+  const bool sweep = value != nullptr;
+  const int threads =
+      !sweep ? 32 : (T_x >= 1024 ? 1024 : ((T_x + 31) / 32) * 32);
+  const size_t smem = sweep ? 2 * static_cast<size_t>(T_x) * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         mas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,14 +4,16 @@
 
 Builds the package's CUDA kernels from `aligner_tpu_torch/csrc/` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, then
-drives the four main paths through the public entry points and checks
+drives the five main paths through the public entry points and checks
 that every kernel of each path was launched there: serving
 (`maximum_path`, `OTAAligner` at the CLI's default width, `BatchAligner`),
 training (`train_aligner` at the same width, checkpoints, `demo-ota`), the
 pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
 `train_aligner` with a `pause_bias` curriculum, `demo-pauses`) and the
 boundary-search path (`MoBoAligner`, `RoMoAligner`, `train_aligner` with
-their reconstruction objectives, `demo-mobo`, `demo-romo`). Phases:
+their reconstruction objectives, `demo-mobo`, `demo-romo`) and the two-pass
+MAS route at the serving batch (`mas_path(fuse=False)` in every form,
+`bench-mas`). Phases, in number order (18 runs after 4):
 
   1. the card (nvidia-smi name and power limit)
   2. kernel build
@@ -20,7 +22,9 @@ their reconstruction objectives, `demo-mobo`, `demo-romo`). Phases:
   5. serving path: maximum_path, OTA forward, BatchAligner; launch counts
   6. the serving path's results against the plain route
   7. CUDA-event times of each kernel against its plain version, beside
-     the least time the card could take for the same bytes and operations
+     the least time the card could take for the same bytes and operations;
+     for H12 also the one library call that computes its function
+     (`torch.eq` into a float32 output), which the package never calls
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
      atol 1e-6, and the loss gradient on the card against the plain one
   9. training path: train_aligner at B=16 on a synthetic corpus, launch
@@ -53,6 +57,23 @@ their reconstruction objectives, `demo-mobo`, `demo-romo`). Phases:
      counts on each; step times, both steps' profiles and the share of
      the plain-PyTorch adjoint
  17. `python -m aligner_tpu_torch demo-mobo --device cuda` and `demo-romo`
+ 18. the two-pass kernels against their plain versions at B=32 and at the
+     serving batch B=256, 128x1024, and at an odd shape (T_x no multiple of
+     32, T_y no multiple of 128), with edge items: `mas_bits` with 1, 2
+     and 4 chains (H1's forward alone, H13) equal to `_forward_bits` and
+     to each other on every cell;
+     `mas_backtrack` as cmp (H1's walk alone), stage (H10), split (H11 +
+     H12) and with 2 and 4 chains (H14) equal to `_backtrack`, `mas_plain`,
+     the fused H1 and the numpy oracle, bit for bit, in both layouts; H11's
+     indices equal to `mas_walk_idx_plain`; H10 and H12 write into an
+     output pre-filled with NaN, so an unwritten cell shows; every walk
+     on bits from elsewhere (bytes above 1, ones in row 0) stays inside
+     the lattice and gives the same path
+ 19. two-pass path with every plain version patched to raise: every route
+     of `mas_path(fuse=False)` at B=256, 128x1024, launch counts per
+     route, each path equal to the fused kernel's; then
+     `python -m aligner_tpu_torch bench-mas --route all --device cuda` at
+     B=32 and B=256 as subprocesses, one gated JSON line per route
 
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -75,6 +96,8 @@ import numpy as np
 import torch
 
 B_MAS, T_X, T_Y = 32, 128, 1024          # headline MAS shape (bench.py)
+B_SERVE = 256                            # serving batch of the two-pass route
+ODD_SHAPE = (8, 45, 300)                 # B, T_x (% 32 != 0), T_y (% 128 != 0)
 B_OTA = 16                               # OTA/forward-sum batch
 LONG_T_Y = 8192                          # long-form lattice length
 VOCAB, N_MELS, DIM, HIDDEN = 76, 80, 192, 256   # train/align CLI defaults
@@ -141,11 +164,8 @@ def cuda_ms(fn, reps):
 
 
 def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    from aligner_tpu_torch._build import card_label
+    card = card_label(0)
     print(card, flush=True)
     log(1, f"torch {torch.__version__} cuda {torch.version.cuda}; "
            f"device 0: {torch.cuda.get_device_name(0)}; "
@@ -207,6 +227,119 @@ def phase_mas(dev):
     log(3, f"H1 long form B=2 {T_X}x{LONG_T_Y} (t_y={t_y.tolist()}): "
            f"bit-identical to mas_plain")
     return max_err
+
+
+TWO_PASS_KERNELS = ("mas_walk_stage_kernel", "mas_walk_idx_kernel",
+                    "mas_expand_kernel", "mas_bits_chains_kernel",
+                    "mas_walk_chains_kernel")
+# (form, chains) of mas_backtrack -> the kernel that walks
+WALKS = {("cmp", 1): "mas_kernel", ("stage", 1): "mas_walk_stage_kernel",
+         ("split", 1): "mas_expand_kernel",
+         ("cmp", 2): "mas_walk_chains_kernel",
+         ("cmp", 4): "mas_walk_chains_kernel"}
+
+
+def two_pass_inputs(seed, B, T_x, T_y, dev):
+    """A ragged batch with edge items 0-4: t_x = 1; t_x = t_y; t_x > t_y;
+    t_x = 0; a full-length item."""
+    value, t_x, t_y = ragged(seed, B, T_x, T_y)
+    t_x[:5] = [1, T_x, T_x, 0, T_x]
+    t_y[:5] = [T_y // 2, T_x, T_x // 2, T_y // 2, T_y]
+    return (value, t_x, t_y,
+            *(torch.from_numpy(a).to(dev) for a in (value, t_x, t_y)))
+
+
+@contextlib.contextmanager
+def outputs_prefilled_with_nan():
+    """While active, every output that a two-pass kernel must write whole
+    (allocated uninitialised) starts as NaN."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    path_out = mk._path_out
+
+    def prefilled(*args, fill):
+        out, view = path_out(*args, fill=fill)
+        if not fill:
+            out.fill_(float("nan"))
+        return out, view
+
+    with patched_attrs([(mk, "_path_out", prefilled)]):
+        yield
+
+
+def phase_two_pass_kernels(dev):
+    """H10-H14 and H1's two halves against their plain versions on the
+    card; returns each new kernel's max abs difference (0 or the phase
+    fails)."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    from aligner_tpu_torch.ops.mas_reference import MAX_NEG_VAL, mas_single
+    errs = dict.fromkeys(TWO_PASS_KERNELS, 0.0)
+    for seed, (B, T_x, T_y) in ((18, (B_MAS, T_X, T_Y)), (19, ODD_SHAPE),
+                                (21, (B_SERVE, T_X, T_Y))):
+        value, t_x, t_y, v, tx, ty = two_pass_inputs(seed, B, T_x, T_y, dev)
+        plain_tm = mk._forward_bits(v, tx, ty, MAX_NEG_VAL)
+        want_bits = plain_tm.permute(1, 0, 2).to(torch.uint8)
+        want_bits = want_bits * mk._valid_items(tx, ty, T_x, T_y)[:, None,
+                                                                  None]
+        bits = mk.mas_bits(v, tx, ty)
+        torch.cuda.synchronize()
+        require_equal(f"H1 bits alone, {T_x}x{T_y}", bits, want_bits)
+        if bits[2:4].any():
+            raise AssertionError("mas_bits: invalid items must get zeros")
+        for k in (2, 4):
+            got = mk.mas_bits(v, tx, ty, chains=k)
+            require_equal(f"H13 chains={k}, {T_x}x{T_y}", got, bits)
+            errs["mas_bits_chains_kernel"] = max(
+                errs["mas_bits_chains_kernel"],
+                float((got != want_bits).sum()))
+        want = mk.mas_plain(v, tx, ty)
+        require_equal("_backtrack of the plain bits vs mas_plain",
+                      mk._backtrack(plain_tm, tx, ty), want)
+        require_equal("H1 fused vs mas_plain", mk.mas_path(v, tx, ty), want)
+        if want[2:4].any():
+            raise AssertionError("invalid items must get zero paths")
+        for i in (0, 1, 4, 5, 6):
+            oracle = mas_single(value[i].copy(), int(t_x[i]), int(t_y[i]))
+            if not np.array_equal(want[i].cpu().numpy().astype(np.int32),
+                                  oracle):
+                raise AssertionError(f"mas_plain item {i} vs oracle")
+        idx = mk.mas_walk_idx(bits, tx, ty)
+        want_idx = mk.mas_walk_idx_plain(bits, tx, ty)
+        require_equal(f"H11 indices, {T_x}x{T_y}", idx, want_idx)
+        errs["mas_walk_idx_kernel"] = max(
+            errs["mas_walk_idx_kernel"],
+            float((idx - want_idx).abs().max()))
+        with outputs_prefilled_with_nan():
+            for (form, k), kernel in WALKS.items():
+                got = mk.mas_backtrack(bits, tx, ty, form=form, chains=k)
+                fm = mk.mas_backtrack(bits, tx, ty, form=form, chains=k,
+                                      frame_major=True)
+                torch.cuda.synchronize()
+                where = f"mas_backtrack form={form} chains={k}, {T_x}x{T_y}"
+                require_equal(where, got, want)
+                require_equal(where + " frame-major", fm,
+                              want.transpose(1, 2))
+                if kernel in errs:
+                    errs[kernel] = max(errs[kernel],
+                                       (got - want).abs().max().item())
+            # Bits from elsewhere: any non-zero byte is a set bit, and a
+            # set bit in row 0 must not take the walk below the lattice.
+            foreign = bits * 3
+            foreign[:, :, 0] = 1
+            for form, k in WALKS:
+                require_equal(f"mas_backtrack form={form} chains={k} on "
+                              f"foreign bits, {T_x}x{T_y}",
+                              mk.mas_backtrack(foreign, tx, ty, form=form,
+                                               chains=k), want)
+        log(18, f"B={B} {T_x}x{T_y} with edge items (t_x=1, t_x=t_y, "
+                f"t_x>t_y, t_x=0, full): mas_bits with 1, 2, 4 chains equal "
+                f"to _forward_bits on every cell (0 off the band and on "
+                f"invalid items); mas_backtrack cmp, stage, split, chains=2, "
+                f"chains=4 bit-identical to _backtrack, mas_plain and the "
+                f"fused H1 in both layouts, items 0, 1, 4, 5, 6 to the numpy "
+                f"oracle; H11 indices equal to mas_walk_idx_plain; H10 and "
+                f"H12 left no NaN of the pre-filled output; the same paths "
+                f"from bits with bytes of 3 and ones in row 0")
+    return errs
 
 
 def fs_inputs(seed, dev):
@@ -388,6 +521,11 @@ def bound(cells, in_lattices, out_bytes, ops_per_cell):
                                                            "operations")
 
 
+def byte_bound(in_bytes, out_bytes):
+    """`bound` for a kernel whose arithmetic is nothing beside its bytes."""
+    return (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
 def abba_ms(kernel, plain):
     """(kernel ms, plain ms) by CUDA events in the order plain, kernel,
     kernel, plain, which cancels drift in the clocks."""
@@ -402,7 +540,8 @@ def phase_times(dev):
     name, at the shapes the main paths use. No single PyTorch call
     computes MAS, a forward-sum lattice or its posterior (ctc_loss is
     another recursion and returns no lattice), so there is no library
-    time to put beside them."""
+    time to put beside them; the one exception is H12, whose function
+    `torch.eq` computes in one call when given a float32 output."""
     from aligner_tpu_torch.ops import forward_sum_kernel as fs
     from aligner_tpu_torch.ops import mas_kernel as mk
     from aligner_tpu_torch.ops import mobo_kernel as mb
@@ -421,8 +560,10 @@ def phase_times(dev):
     grid = 4 * T_X * B_OTA * (T_Y + 1)
     lattice = 4 * B_OTA * T_Y * T_X
     skip_lattice = 4 * B_OTA * T_Y * (2 * T_X + 1)
+    two_pass, two_pass_modes = two_pass_runs(mk, v, tx, ty)
     # name: kernel call, plain call, (live cells, input lattices, output
-    # bytes, operations per cell)
+    # bytes, operations per cell) or the bound itself, and the library call
+    # where there is one
     runs = {
         "mas_kernel": (
             lambda: mk.mas_path(v, tx, ty), lambda: mk.mas_plain(v, tx, ty),
@@ -465,16 +606,26 @@ def phase_times(dev):
             lambda: mb.mobo_beta(e_tm, mtx, mty, D_MOBO),
             lambda: mb.mobo_beta_plain(e_tm, mtx, mty, D_MOBO),
             (cells, 1, grid, 8 * D_MOBO)),
+        **two_pass,
     }
     times = {}
-    for name, (kernel, plain, work) in runs.items():
+    for name, (kernel, plain, work, *library) in runs.items():
         ms, plain_ms = abba_ms(kernel, plain)
-        bound_ms, bound_by = bound(*work)
+        library_ms = cuda_ms(library[0], 20) if library else None
+        bound_ms, bound_by = work if len(work) == 2 else bound(*work)
         times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": None}
+                       "bound_by": bound_by, "library_ms": library_ms}
         log(7, f"{name}: {ms:.4f} ms; plain version {plain_ms:.2f} ms; "
                f"bound {bound_ms:.4f} ms by {bound_by} "
-               f"({100 * bound_ms / ms:.1f}% of the kernel's time)")
+               + (WALK_NOTE.format(frames=int(ty.max()))
+                  if name in CHAIN_BOUND else
+                  f"({100 * bound_ms / ms:.1f}% of the kernel's time)")
+               + (f"; library call {library_ms:.4f} ms" if library else ""))
+    for what, (kernel, plain, work) in two_pass_modes.items():
+        ms, plain_ms = abba_ms(kernel, plain)
+        log(7, f"{what} B={B_MAS} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
+               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}")
+    serving_times(dev)
     durs_ms = cuda_ms(lambda: mk.mas_durations(v, tx, ty), 20)
     durs_plain = cuda_ms(
         lambda: mk.mas_plain(v, tx, ty).sum(-1).to(torch.int32), 2)
@@ -485,9 +636,106 @@ def phase_times(dev):
     log(7, f"shapes: H1 B={B_MAS} {T_X}x{T_Y}; H2, H3 B={B_OTA} "
            f"{T_X}x{T_Y}; H4-H6 B={B_OTA} {2 * T_X + 1} states x {T_Y}; "
            f"H7-H9 B={B_OTA} {T_X} tokens x {T_Y + 1} positions, D="
-           f"{D_MOBO}, {cells} live cells; all ragged; no library call "
-           f"computes any of them")
+           f"{D_MOBO}, {cells} live cells; H10-H14 B={B_MAS} {T_X}x{T_Y}, "
+           f"H13 and H14 with 4 chains; all ragged; no library call "
+           f"computes any of them but H12 (torch.eq into a float32 output, "
+           f"timed here and called nowhere in the package; H12's plain "
+           f"version is the two-call expression compare + cast)")
     return times
+
+
+# Kernels whose byte bound says nothing: one thread follows a chain of
+# dependent loads and moves a few KB.
+CHAIN_BOUND = ("mas_walk_idx_kernel",)
+WALK_NOTE = ("(no share stated: what bounds it in fact is a chain of up to "
+             "{frames} dependent L2 loads per item)")
+
+
+def two_pass_runs(mk, v, tx, ty):
+    """Phase 7's entries for the two-pass kernels on the lattice (v, tx,
+    ty): ({kernel name: (kernel call, plain call, bound)}, the same for
+    H1's two halves and the 2-chain variants, by description). H12's
+    entry carries a fourth member, the library call of its function."""
+    from aligner_tpu_torch.ops.mas_reference import MAX_NEG_VAL
+    B, T_x, T_y = v.shape
+    bits = mk.mas_bits(v, tx, ty)
+    bits_tm = bits.permute(1, 0, 2) != 0
+    idx = mk.mas_walk_idx(bits, tx, ty)
+    cells = live_cells(tx, ty)
+    frames = int((ty * mk._valid_items(tx, ty, T_x, T_y)).sum())
+    path_bytes = 4 * B * T_x * T_y
+    # The forward reads four bytes and writes one bit byte per live cell;
+    # a walk reads one bit byte per frame and the path is written whole.
+    forward = bound(cells, 1, cells, 3)
+    walk = byte_bound(frames, path_bytes)
+
+    def plain_bits():
+        return mk._forward_bits(v, tx, ty, MAX_NEG_VAL)
+
+    def plain_walk():
+        return mk._backtrack(bits_tm, tx, ty)
+
+    tokens = torch.arange(1, T_x + 1, dtype=torch.int32,
+                          device=v.device)[None, :, None]
+
+    def library_expand():
+        out = torch.empty((B, T_x, T_y), dtype=torch.float32,
+                          device=v.device)
+        return torch.eq(tokens, idx[:, None, :], out=out)
+
+    require_equal("torch.eq into float32 vs H12", library_expand(),
+                  mk.mas_expand(idx, T_x))
+
+    kernels = {
+        "mas_walk_stage_kernel": (
+            lambda: mk.mas_backtrack(bits, tx, ty, form="stage"),
+            plain_walk, walk),
+        "mas_walk_idx_kernel": (
+            lambda: mk.mas_walk_idx(bits, tx, ty),
+            lambda: mk.mas_walk_idx_plain(bits, tx, ty),
+            byte_bound(frames, 4 * B * T_y)),
+        "mas_expand_kernel": (
+            lambda: mk.mas_expand(idx, T_x),
+            lambda: mk.mas_expand_plain(idx, T_x),
+            byte_bound(4 * B * T_y, path_bytes), library_expand),
+        "mas_bits_chains_kernel": (
+            lambda: mk.mas_bits(v, tx, ty, chains=4), plain_bits, forward),
+        "mas_walk_chains_kernel": (
+            lambda: mk.mas_backtrack(bits, tx, ty, chains=4), plain_walk,
+            walk),
+    }
+    modes = {
+        "mas_kernel, forward alone (mas_bits)": (
+            lambda: mk.mas_bits(v, tx, ty), plain_bits, forward),
+        "mas_kernel, walk alone (mas_backtrack, cmp)": (
+            lambda: mk.mas_backtrack(bits, tx, ty), plain_walk, walk),
+        "mas_bits_chains_kernel, 2 chains": (
+            lambda: mk.mas_bits(v, tx, ty, chains=2), plain_bits, forward),
+        "mas_walk_chains_kernel, 2 chains": (
+            lambda: mk.mas_backtrack(bits, tx, ty, chains=2), plain_walk,
+            walk),
+    }
+    return kernels, modes
+
+
+def serving_times(dev):
+    """The MAS kernels at the serving batch, B=256, timed as at B=32."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    value, t_x, t_y = ragged(0, B_SERVE, T_X, T_Y)
+    v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+    kernels, modes = two_pass_runs(mk, v, tx, ty)
+    fused = {"mas_kernel, fused (mas_path)": (
+        lambda: mk.mas_path(v, tx, ty), lambda: mk.mas_plain(v, tx, ty),
+        bound(live_cells(tx, ty), 1, 4 * B_SERVE * T_X * T_Y, 3))}
+    for what, (kernel, plain, work, *library) in {**fused, **modes,
+                                                  **kernels}.items():
+        ms, plain_ms = abba_ms(kernel, plain)
+        if what in TWO_PASS_KERNELS and "chains" in what:
+            what += ", 4 chains"
+        log(7, f"{what} B={B_SERVE} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
+               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}"
+               + (f"; library call {cuda_ms(library[0], 20):.4f} ms"
+                  if library else ""))
 
 
 def grad_inputs(dev):
@@ -1011,6 +1259,10 @@ def plain_versions_refused():
         raise AssertionError("a plain version ran on the CUDA path")
 
     patched = [(mas_kernel, "mas_plain"),
+               (mas_kernel, "_forward_bits"),
+               (mas_kernel, "_backtrack"),
+               (mas_kernel, "mas_walk_idx_plain"),
+               (mas_kernel, "mas_expand_plain"),
                (forward_sum_kernel, "alpha_plain"),
                (forward_sum_kernel, "gamma_plain"),
                (skip_dp_kernel, "mas_skip_plain"),
@@ -1590,6 +1842,101 @@ def phase_demo_mobo(dev):
         raise AssertionError(f"demo-romo printed {rec}")
 
 
+def run_bench_mas(dev, batch):
+    """`bench-mas --route all` on the card as a subprocess; returns its
+    JSON records, one per route, none with an error."""
+    from aligner_tpu_torch.bench_mas import METRIC, ROUTES
+    cmd = [sys.executable, "-m", "aligner_tpu_torch", "bench-mas", "--route",
+           "all", "--batch", str(batch), "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout}"
+                             f"{proc.stderr}")
+    recs = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    keys = {"metric", "value", "unit", "vs_baseline", "p50_align_step_ms",
+            "config", "timing_method", "route", "device"}
+    if [r.get("route") for r in recs] != list(ROUTES) \
+            or recs[-1]["route"] != "fused":
+        raise AssertionError(f"bench-mas printed routes "
+                             f"{[r.get('route') for r in recs]}")
+    for rec in recs:
+        if "error" in rec or not keys <= set(rec) \
+                or rec["metric"] != METRIC or not rec["value"] > 0 \
+                or rec["timing_method"] != "cuda_events" \
+                or f"B={batch}," not in rec["config"]:
+            raise AssertionError(f"bench-mas printed {rec}")
+        log(19, f"bench-mas {json.dumps(rec)}")
+    log(19, f"{' '.join(cmd[3:])}: {len(recs)} routes behind the two-seed "
+            f"bit-identity gate in {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def phase_two_pass_path(dev):
+    """Drive every route of the two-pass path at the serving batch with
+    every plain version refused; return the kernel launches made there."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.bench_mas import ROUTES
+    from aligner_tpu_torch.ops.mas_kernel import mas_path
+    from aligner_tpu_torch.ops.mas_reference import mas_single
+    bits_walk = {"mas_bits_chains_kernel": 1, "mas_walk_chains_kernel": 1}
+    expected = {
+        "fused": {"mas_kernel": 1},
+        "two_pass": {"mas_kernel": 2},
+        "stage": {"mas_kernel": 1, "mas_walk_stage_kernel": 1},
+        "split": {"mas_kernel": 1, "mas_walk_idx_kernel": 1,
+                  "mas_expand_kernel": 1},
+        "chains2": bits_walk, "chains4": bits_walk}
+    value, t_x, t_y = ragged(20, B_SERVE, T_X, T_Y)
+    t_x[:2], t_y[:2] = [T_X, 0], [T_X // 2, T_Y // 2]     # invalid items
+    v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+    paths, total = {}, {}
+    torch.cuda.synchronize()
+    at.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with plain_versions_refused():
+        for name, options in ROUTES.items():
+            before = at.kernel_launches()
+            paths[name] = mas_path(v, tx, ty, **options)
+            after = at.kernel_launches()
+            made = {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] != before.get(k, 0)}
+            if made != expected[name]:
+                raise AssertionError(f"route {name} launched {made}, "
+                                     f"expected {expected[name]}")
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = at.kernel_launches()
+    log(19, f"mas_path on every route ({', '.join(ROUTES)}) at B={B_SERVE} "
+            f"{T_X}x{T_Y} ragged in {seconds:.3f} s, no plain version "
+            f"reached; kernel launches {launches}")
+    require_launches("two-pass path", launches, 1,
+                     ("mas_kernel", *TWO_PASS_KERNELS))
+    fused = paths["fused"]
+    for name, path in paths.items():
+        require_equal(f"route {name} vs the fused kernel", path, fused)
+    if fused[:2].any():
+        raise AssertionError("invalid items must get zero paths")
+    frames = torch.arange(T_Y, device=dev)[None, :] < ty[:, None]
+    frames[:2] = False
+    if not torch.equal(fused.sum(1), frames.float()):
+        raise AssertionError("a frame below t_y is not on exactly one token")
+    for i in (2, 3, B_SERVE // 2, B_SERVE - 1):
+        oracle = mas_single(value[i].copy(), int(t_x[i]), int(t_y[i]))
+        if not np.array_equal(fused[i].cpu().numpy().astype(np.int32),
+                              oracle):
+            raise AssertionError(f"fused path item {i} vs oracle")
+    log(19, f"every route bit-identical to the fused kernel, which equals "
+            f"the numpy oracle on items 2, 3, {B_SERVE // 2}, "
+            f"{B_SERVE - 1}; each frame below t_y on exactly one token; "
+            f"invalid items all zero")
+    for batch in (B_MAS, B_SERVE):
+        run_bench_mas(dev, batch)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU instead",
@@ -1600,6 +1947,7 @@ def main():
     phase_build()
     mas_err = phase_mas(dev)
     fs_err = phase_forward_sum(dev)
+    two_pass_errs = phase_two_pass_kernels(dev)
     # Exact float32 matmuls and convolutions for the comparisons below.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1617,6 +1965,7 @@ def main():
     mobo_errs = phase_mobo_kernels(dev)
     mobo = phase_mobo_path(dev)
     phase_demo_mobo(dev)
+    two_pass = phase_two_pass_path(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -1635,11 +1984,16 @@ def main():
              mobo_errs[0]),
             ("mobo_bp_kernel", "mobo.cu", "mobo_pallas.py:84", mobo_errs[1]),
             ("mobo_beta_kernel", "mobo.cu", "mobo_pallas.py:114",
-             mobo_errs[2])]:
+             mobo_errs[2]),
+            *((name, "mas_two_pass.cu", f"mas_pallas.py:{line}",
+               two_pass_errs[name])
+              for name, line in zip(TWO_PASS_KERNELS,
+                                    (981, 1139, 1171, 1411, 1603)))]:
         by_path = {"serving": serving.get(name, 0),
                    "training": training.get(name, 0),
                    "pauses": pauses.get(name, 0),
-                   "mobo": mobo.get(name, 0)}
+                   "mobo": mobo.get(name, 0),
+                   "two_pass": two_pass.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

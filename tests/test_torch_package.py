@@ -9,7 +9,9 @@ machine that has none (the repo's conftest imports jax, hence
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_package.py
 """
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -115,11 +117,76 @@ def test_import_pulls_in_no_jax():
             "             'ops.skip_dp', 'ops.skip_dp_kernel',\n"
             "             'ops.skip_dp_reference', 'ops.mobo',\n"
             "             'ops.mobo_kernel', 'models.mobo', 'models.romo',\n"
-            "             'models.convert'):\n"
+            "             'models.convert', 'bench_mas'):\n"
             "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", [
+    "chip_smoke.py", "aligner_tpu_torch/bench_mas.py",
+    "aligner_tpu_torch/cli.py", "aligner_tpu_torch/_build.py",
+    "aligner_tpu_torch/ops/mas_kernel.py",
+    "aligner_tpu_torch/ops/__init__.py"])
+def test_source_names_no_jax_import(path):
+    """No import statement of the file reaches jax or the JAX package."""
+    with open(os.path.join(REPO, path)) as f:
+        source = f.read()
+    assert not re.search(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|aligner_tpu)\b",
+        source, re.MULTILINE)
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "p50_align_step_ms",
+              "config", "timing_method", "route", "device"}
+BENCH_ROUTES = ["two_pass", "stage", "split", "chains2", "chains4", "fused"]
+
+
+def bench_mas(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "aligner_tpu_torch", "bench-mas", "--batch",
+         "4", "--t-text", "8", "--t-mel", "40", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+def test_bench_mas_cpu_prints_one_line_per_route():
+    """`--route all` on the plain versions: bench.py's keys on every
+    line, the default route last, nothing labelled as a card's time. (The
+    batch is 4 so that the 4-chain route divides it.)"""
+    proc = bench_mas("--device", "cpu", "--route", "all")
+    assert proc.returncode == 0, proc.stderr
+    recs = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    assert [r["route"] for r in recs] == BENCH_ROUTES
+    for rec in recs:
+        assert BENCH_KEYS <= set(rec) and "error" not in rec
+        assert rec["metric"] == "mas_paths_per_sec_per_chip"
+        assert rec["unit"] == "paths/s" and rec["value"] > 0
+        assert rec["vs_baseline"] == round(rec["value"] / 2110.0, 2)
+        assert rec["config"] == "B=4,T_text=8,T_mel=40,ragged"
+        assert rec["timing_method"] == "host_clock"
+        assert rec["device"].startswith("cpu")
+    one = bench_mas("--device", "cpu", "--route", "split")
+    assert one.returncode == 0, one.stderr
+    assert json.loads(one.stdout)["route"] == "split"
+
+
+@pytest.mark.parametrize("args,error", [
+    (("--device", "cuda"), "no CUDA device"),
+    (("--device", "cpu", "--route", "chains4", "--batch", "6"),
+     "must divide the batch")])
+def test_bench_mas_failure_is_an_error_line_and_exit_1(args, error):
+    """No card under `--device cuda`, or a route the batch cannot take:
+    bench.py's error line and exit code 1, never a quiet move to the CPU
+    or to another route."""
+    if args == ("--device", "cuda") and torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    proc = bench_mas(*args)
+    assert proc.returncode == 1
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert error in rec["error"] and rec["value"] == 0.0
+    assert rec["metric"] == "mas_paths_per_sec_per_chip"
+    assert rec["vs_baseline"] == 0.0 and rec["unit"] == "paths/s"
 
 
 def test_cpu_route_launches_no_kernel():
@@ -140,10 +207,15 @@ def test_cpu_route_launches_no_kernel():
     for cls, config in MOBO_FAMILIES:
         out = cls(config)(*small_batch())
         (out["loss_recon"] + out.get("loss", out.get("loss_mobo"))).backward()
+    v, tx, ty = (torch.from_numpy(a) for a in (value, t_x, t_y))
+    for options in TWO_PASS_ROUTES.values():
+        mas_kernel.mas_path(v, tx, ty, fuse=False, **options)
     assert at.kernel_launches() == {}
 
 
-@pytest.mark.parametrize("call", ["mas_path", "mas_durations",
+@pytest.mark.parametrize("call", ["mas_path", "mas_durations", "mas_bits",
+                                  "mas_backtrack", "mas_walk_idx",
+                                  "mas_expand",
                                   "forward_sum_alpha", "forward_sum_grad"])
 def test_other_devices_raise(call):
     """Neither a kernel nor a plain version runs on a device that is not
@@ -156,6 +228,11 @@ def test_other_devices_raise(call):
         elif call == "forward_sum_grad":
             forward_sum_kernel.forward_sum_grad(value, value, torch.zeros(3),
                                                 torch.ones(3), torch.ones(3))
+        elif call in ("mas_backtrack", "mas_walk_idx"):
+            getattr(mas_kernel, call)(value.to(torch.uint8), lengths,
+                                      lengths)
+        elif call == "mas_expand":
+            mas_kernel.mas_expand(value[0].to(torch.int32), 4)
         else:
             getattr(mas_kernel, call)(value, lengths, lengths)
 
@@ -176,6 +253,68 @@ def test_mas_kernel_matches_plain(cuda, seed, B, T_x, T_y):
     fm = mas_kernel.mas_path(v.transpose(1, 2).contiguous().transpose(1, 2),
                              tx, ty, frame_major=True)
     torch.testing.assert_close(fm, path.transpose(1, 2), rtol=0, atol=0)
+
+
+TWO_PASS_ROUTES = {"cmp": {}, "stage": {"form": "stage"},
+                   "split": {"form": "split"}, "chains2": {"chains": 2},
+                   "chains4": {"chains": 4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(TWO_PASS_ROUTES))
+@pytest.mark.parametrize("seed,B,T_x,T_y", [(30, 8, 16, 61),
+                                            (31, 4, 45, 300),
+                                            (32, 4, 1100, 1300)])
+def test_two_pass_routes_match_plain(cuda, route, seed, B, T_x, T_y):
+    """Every two-pass route bit-identical to mas_plain in both layouts,
+    its bits equal to the plain forward's on every cell; the shapes have
+    T_x no multiple of 32, T_y no multiple of 128, and T_x > 1024 / chains
+    (threads stride over the token rows)."""
+    options = TWO_PASS_ROUTES[route]
+    value, t_x, t_y = ragged(seed, B, T_x, T_y)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    want = mas_kernel.mas_plain(v, tx, ty)
+    chains = options.get("chains", 1)
+    bits = mas_kernel.mas_bits(v, tx, ty, chains=chains)
+    torch.testing.assert_close(bits, mas_kernel.mas_bits(v.cpu(), tx.cpu(),
+                                                         ty.cpu()).to(cuda),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        mas_kernel.mas_backtrack(bits, tx, ty, **options), want, rtol=0,
+        atol=0)
+    torch.testing.assert_close(
+        mas_kernel.mas_path(v, tx, ty, fuse=False, **options), want, rtol=0,
+        atol=0)
+    fm = mas_kernel.mas_path(v, tx, ty, fuse=False, frame_major=True,
+                             **options)
+    assert fm.is_contiguous()
+    torch.testing.assert_close(fm, want.transpose(1, 2), rtol=0, atol=0)
+    if route == "split":
+        torch.testing.assert_close(
+            mas_kernel.mas_walk_idx(bits, tx, ty),
+            mas_kernel.mas_walk_idx_plain(bits, tx, ty), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_two_pass_path_never_runs_plain(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("mas_plain", "_forward_bits", "_backtrack",
+                 "mas_walk_idx_plain", "mas_expand_plain"):
+        monkeypatch.setattr(mas_kernel, name, refuse)
+    value, t_x, t_y = ragged(33, 8, 24, 90)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    at.reset_kernel_launches()
+    fused = mas_kernel.mas_path(v, tx, ty)
+    for options in TWO_PASS_ROUTES.values():
+        assert torch.equal(
+            mas_kernel.mas_path(v, tx, ty, fuse=False, **options), fused)
+    torch.cuda.synchronize()
+    assert at.kernel_launches() == {
+        "mas_kernel": 1 + 2 + 1 + 1, "mas_walk_stage_kernel": 1,
+        "mas_walk_idx_kernel": 1, "mas_expand_kernel": 1,
+        "mas_bits_chains_kernel": 2, "mas_walk_chains_kernel": 2}
 
 
 @pytest.mark.cuda

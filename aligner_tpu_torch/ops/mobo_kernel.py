@@ -21,6 +21,15 @@ max + log; `_window_max_argmax_back`: a later d replaces only if strictly
 greater), so on live cells the kernels agree with them to the last bit;
 dead cells hold NEG give or take log(D) and stay below NEG / 2.
 
+What bounds H7 and H9 is the card's special function unit (2*D expf and
+two logf per cell) and a chain of t_x dependent token steps per item, not
+bytes. Each item runs on a cluster of C blocks that split its T_y1
+positions into slices of w (`_cluster_plan`) and push the D-cell halo of
+each token's row into their neighbour's shared memory, with one block
+barrier per token and no barrier over the cluster; they compute the
+normalizer z for every token before the chain and fetch the next token's
+row ahead (`csrc/mobo.cu` says why). H8 runs one block per item.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The walk clamps its position into the grid, which only an
 item without a boundary sequence needs (the JAX package's index wraps
@@ -37,6 +46,27 @@ NEG = -1e15
 ALPHA_KERNEL = "mobo_alpha_kernel"
 BP_KERNEL = "mobo_bp_kernel"
 BETA_KERNEL = "mobo_beta_kernel"
+
+SMS = 132            # streaming multiprocessors of the H100
+MAX_CLUSTER = 8      # the portable cluster size
+MIN_SLICE = 32       # positions a block owns at least when it has neighbours
+MAX_SLICE = 4096     # positions whose rows a block keeps in shared memory
+
+
+def _cluster_plan(B: int, n: int, D: int) -> tuple[int, int]:
+    """(C, w) of H7 and H9 for B items of n positions and window D: C
+    blocks per item, each owning w consecutive positions (the last block
+    what is left, at least one). C <= 8 and falls as B grows, so that B*C
+    stays within the card's SMs while B <= 132; with neighbours a block
+    owns at least max(D, 32) positions, so that its D-cell halo comes from
+    one neighbour and no block is less than a warp; C = 1 is one block per
+    item. Beyond MAX_SLICE positions an item takes more blocks, as far as
+    the window allows, to keep its rows in shared memory."""
+    most = max(1, n // max(D, MIN_SLICE))
+    C = max(1, min(MAX_CLUSTER, SMS // max(B, 1), most))
+    C = max(C, min(MAX_CLUSTER, most, -(-n // MAX_SLICE)))
+    w = -(-n // C)
+    return -(-n // w), w
 
 
 def _sb(arr: torch.Tensor, d: int) -> torch.Tensor:
@@ -183,7 +213,8 @@ def mobo_beta_plain(e_tm: torch.Tensor, t_x: torch.Tensor,
 
 def mobo_alpha(e_tm: torch.Tensor, t_x, D: int) -> torch.Tensor:
     """logB stack [T_x, B, T_y1] of the forward boundary recursion (see
-    the module docstring for the grid's contract)."""
+    the module docstring for the grid's contract), on the card in
+    clusters of `_cluster_plan(B, T_y1, D)`."""
     t_x, = _check_grid(e_tm, D, t_x=t_x)
     if e_tm.device.type == "cpu":
         return mobo_alpha_plain(e_tm, t_x, D)
@@ -191,11 +222,12 @@ def mobo_alpha(e_tm: torch.Tensor, t_x, D: int) -> torch.Tensor:
     logB = torch.empty((T_x, B, n), dtype=torch.float32, device=e_tm.device)
     if logB.numel() == 0:
         return logB
+    C, w = _cluster_plan(B, n, int(D))
     lib = _build.load_library()
     with torch.cuda.device(e_tm.device):
         err = lib.mobo_alpha_launch(
             e_tm.data_ptr(), *e_tm.stride(), t_x.data_ptr(),
-            logB.data_ptr(), B, T_x, n, int(D),
+            logB.data_ptr(), B, T_x, n, int(D), C, w,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, ALPHA_KERNEL)
     _build.LAUNCHES[ALPHA_KERNEL] += 1
@@ -225,7 +257,8 @@ def mobo_bp(e_tm: torch.Tensor, t_x, t_y, D: int):
 
 
 def mobo_beta(e_tm: torch.Tensor, t_x, t_y, D: int) -> torch.Tensor:
-    """Beta stack [T_x, B, T_y1] of the backward recursion."""
+    """Beta stack [T_x, B, T_y1] of the backward recursion, on the card
+    in clusters of `_cluster_plan(B, T_y1, D)`."""
     t_x, t_y = _check_grid(e_tm, D, t_x=t_x, t_y=t_y)
     if e_tm.device.type == "cpu":
         return mobo_beta_plain(e_tm, t_x, t_y, D)
@@ -234,11 +267,12 @@ def mobo_beta(e_tm: torch.Tensor, t_x, t_y, D: int) -> torch.Tensor:
                         device=e_tm.device)
     if betas.numel() == 0:
         return betas
+    C, w = _cluster_plan(B, n, int(D))
     lib = _build.load_library()
     with torch.cuda.device(e_tm.device):
         err = lib.mobo_beta_launch(
             e_tm.data_ptr(), *e_tm.stride(), t_x.data_ptr(), t_y.data_ptr(),
-            betas.data_ptr(), B, T_x, n, int(D),
+            betas.data_ptr(), B, T_x, n, int(D), C, w,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, BETA_KERNEL)
     _build.LAUNCHES[BETA_KERNEL] += 1

@@ -22,7 +22,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
   5. serving path: maximum_path, OTA forward, BatchAligner; launch counts
   6. the serving path's results against the plain route
   7. CUDA-event times of each kernel against its plain version, beside
-     the least time the card could take for the same bytes and operations;
+     the least time the card could take for the same bytes, operations
+     and special-function results (H7's and H9's cluster plan beside them);
      for H12 also the one library call that computes its function
      (`torch.eq` into a float32 output), which the package never calls
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
@@ -45,11 +46,14 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      pause step's time beside the pause-blind step's, and its profile
  14. `python -m aligner_tpu_torch demo-pauses --skip-blind --device cuda`
  15. H7 (MoBo alpha), H8 (MoBo backpointers and walk) and H9 (MoBo beta)
-     against mobo_alpha_plain, mobo_bp_plain and mobo_beta_plain at D = 32
-     and T_y1 = 1025 with edge items, and at D = 4 with another T_y1: live
-     cells rtol 1e-6 / atol 1e-5, dead cells below NEG / 2, backpointers
-     and durations equal; the backward of mobo_forward and of mobo_loss on
-     the card against the plain route's, rtol 1e-4 / atol 2e-5
+     against mobo_alpha_plain, mobo_bp_plain and mobo_beta_plain with edge
+     items at B = 16, D = 32 and T_y1 = 1025, at D = 4 with another T_y1,
+     at T_y1 = 131 (H7 and H9 in slices barely wider than D = 32), and at
+     B = 64 x 1025 (a smaller cluster): live cells rtol 1e-6 / atol 1e-5,
+     each plan (C, w) and max abs error printed, dead cells below NEG / 2,
+     backpointers and durations equal; the backward of mobo_forward and
+     of mobo_loss on the card against the plain route's, rtol 1e-4 / atol
+     2e-5
  16. boundary-search path with every plain version patched to raise: the
      MoBoAligner and RoMoAligner forward with hard boundaries (held
      against the same models on the plain route), train_aligner for each
@@ -84,6 +88,7 @@ one CPU run is phase 9's reference gradient.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -126,6 +131,12 @@ MOBO_GRAD_RTOL, MOBO_GRAD_ATOL = 1e-4, 2e-5
 # Published peaks of the H100 SXM: HBM3 bytes/s, and float32 operations/s
 # outside the tensor cores (these sweeps have no matrix product).
 PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
+# Special-function results (expf, logf, log1pf) per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), times the card's SMs and its maximum SM clock.
+SFU_PER_CLOCK_PER_SM, SMS = 16, 132
+MOBO_SHAPES = ((15, B_OTA, T_Y, D_MOBO), (16, B_OTA, 300, 4),
+               (17, B_OTA, 130, D_MOBO), (18, 64, T_Y, D_MOBO))
 
 
 def log(phase, msg):
@@ -169,8 +180,20 @@ def phase_device():
     print(card, flush=True)
     log(1, f"torch {torch.__version__} cuda {torch.version.cuda}; "
            f"device 0: {torch.cuda.get_device_name(0)}; "
-           f"count {torch.cuda.device_count()}")
+           f"count {torch.cuda.device_count()}; maximum SM clock "
+           f"{max_sm_clock_hz() / 1e6:.0f} MHz")
     return card
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz():
+    """Card 0's maximum SM clock, as `nvidia-smi --query-gpu=clocks.max.sm`
+    gives it, in Hz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(smi.stdout.split()[0]) * 1e6
 
 
 def phase_build():
@@ -509,16 +532,21 @@ def live_cells(t_x, t_y, skip=False):
     return int((rows.long() * t_y * valid).sum())
 
 
-def bound(cells, in_lattices, out_bytes, ops_per_cell):
+def bound(cells, in_lattices, out_bytes, ops_per_cell, sfu_per_cell=0):
     """(bound_ms, bound_by): the least time the card could take for one
-    call. The bytes it must move (each of the `cells` that the ragged
-    items need read once per input lattice, and each output byte written
-    once) over the card's memory rate, or its operations on those cells
-    over the card's float32 rate, whichever is larger."""
-    bytes_ms = (4 * in_lattices * cells + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops_per_cell * cells / PEAK_F32_OPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
+    call. The largest of: the bytes it must move (each of the `cells` that
+    the ragged items need read once per input lattice, and each output byte
+    written once) over the card's memory rate; its operations on those
+    cells over the card's float32 rate; and its expf, logf and log1pf on
+    those cells over the card's special-function rate (each counted as one
+    result of the unit, so this too is a floor)."""
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * SMS * max_sm_clock_hz()
+    terms = {"bytes": (4 * in_lattices * cells + out_bytes)
+             / PEAK_BYTES_PER_S * 1e3,
+             "operations": ops_per_cell * cells / PEAK_F32_OPS_PER_S * 1e3,
+             "sfu": sfu_per_cell * cells / sfu_per_s * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def byte_bound(in_bytes, out_bytes):
@@ -571,11 +599,11 @@ def phase_times(dev):
         "forward_sum_alpha_kernel": (
             lambda: fs.forward_sum_alpha(flp_tm, fty),
             lambda: fs.alpha_plain(flp_tm, fty),
-            (live_cells(ftx, fty), 1, lattice + 4 * B_OTA * T_X, 8)),
+            (live_cells(ftx, fty), 1, lattice + 4 * B_OTA * T_X, 8, 2)),
         "forward_sum_grad_kernel": (
             lambda: fs.forward_sum_grad(lp_tm, alphas, total, gtx, gty),
             lambda: fs.gamma_plain(lp_tm, alphas, total, gtx, gty),
-            (live_cells(gtx, gty), 2, lattice, 13)),
+            (live_cells(gtx, gty), 2, lattice, 13, 3)),
         "mas_skip_kernel": (
             lambda: sk.mas_skip_path(sv, stx, sty),
             lambda: sk.mas_skip_plain(sv, stx, sty),
@@ -584,30 +612,33 @@ def phase_times(dev):
             lambda: sk.forward_sum_skip_alpha(slp_tm, sgty),
             lambda: sk.alpha_skip_plain(slp_tm, sgty),
             (live_cells(sgtx, sgty, True), 1,
-             skip_lattice + 4 * B_OTA * (2 * T_X + 1), 16)),
+             skip_lattice + 4 * B_OTA * (2 * T_X + 1), 16, 4)),
         "forward_sum_skip_gamma_kernel": (
             lambda: sk.forward_sum_skip_grad(slp_tm, salphas, stotal, sgtx,
                                              sgty),
             lambda: sk.gamma_skip_plain(slp_tm, salphas, stotal, sgtx, sgty),
-            (live_cells(sgtx, sgty, True), 2, skip_lattice, 21)),
+            (live_cells(sgtx, sgty, True), 2, skip_lattice, 21, 5)),
         # Per live cell: the normalizer's window (D each of max, subtract,
-        # exp and add) and the same again for the inner LSE (H7, H9) or D
-        # compares for the max (H8); an exp counts as one operation, so
-        # the bound is a floor.
+        # exp and add, one log) and the same again for the inner LSE (H7,
+        # H9) or D compares for the max (H8). Special functions per cell:
+        # H2 and H3 one expf and one log1pf per logaddexp, H3 one more expf
+        # for the posterior; H5 and H6 two logaddexp, H6 the posterior's
+        # expf; H7 and H9 2 * (D expf + one logf), H8 D expf + one logf.
         "mobo_alpha_kernel": (
             lambda: mb.mobo_alpha(e_tm, mtx, D_MOBO),
             lambda: mb.mobo_alpha_plain(e_tm, mtx, D_MOBO),
-            (cells, 1, grid, 8 * D_MOBO)),
+            (cells, 1, grid, 8 * D_MOBO, 2 * (D_MOBO + 1))),
         "mobo_bp_kernel": (
             lambda: mb.mobo_bp(e_tm, mtx, mty, D_MOBO),
             lambda: mb.mobo_bp_plain(e_tm, mtx, mty, D_MOBO),
-            (cells, 1, grid + 4 * B_OTA * T_X, 5 * D_MOBO)),
+            (cells, 1, grid + 4 * B_OTA * T_X, 5 * D_MOBO, D_MOBO + 1)),
         "mobo_beta_kernel": (
             lambda: mb.mobo_beta(e_tm, mtx, mty, D_MOBO),
             lambda: mb.mobo_beta_plain(e_tm, mtx, mty, D_MOBO),
-            (cells, 1, grid, 8 * D_MOBO)),
+            (cells, 1, grid, 8 * D_MOBO, 2 * (D_MOBO + 1))),
         **two_pass,
     }
+    plan = "C={}, w={}".format(*mb._cluster_plan(B_OTA, T_Y + 1, D_MOBO))
     times = {}
     for name, (kernel, plain, work, *library) in runs.items():
         ms, plain_ms = abba_ms(kernel, plain)
@@ -620,7 +651,21 @@ def phase_times(dev):
                + (WALK_NOTE.format(frames=int(ty.max()))
                   if name in CHAIN_BOUND else
                   f"({100 * bound_ms / ms:.1f}% of the kernel's time)")
-               + (f"; library call {library_ms:.4f} ms" if library else ""))
+               + (f"; library call {library_ms:.4f} ms" if library else "")
+               + (f"; cluster plan {plan}" if name in CLUSTER_KERNELS
+                  else ""))
+    for B, D in ((64, D_MOBO), (B_SERVE, D_MOBO), (B_OTA, 1)):
+        # H7 and H9 at a smaller cluster, at one block per item (B > the
+        # card's SMs), and with D = 1, where a token step is the chain's
+        # own cost without its window.
+        be_tm, btx, bty = mobo_inputs(dev, 15, T_Y, D, B)
+        for name, kernel in (
+                ("mobo_alpha_kernel", lambda: mb.mobo_alpha(be_tm, btx, D)),
+                ("mobo_beta_kernel",
+                 lambda: mb.mobo_beta(be_tm, btx, bty, D))):
+            log(7, f"{name} B={B} {T_X} tokens x {T_Y + 1} positions, D={D}: "
+                   f"{cuda_ms(kernel, 20):.4f} ms; cluster plan "
+                   "C={}, w={}".format(*mb._cluster_plan(B, T_Y + 1, D)))
     for what, (kernel, plain, work) in two_pass_modes.items():
         ms, plain_ms = abba_ms(kernel, plain)
         log(7, f"{what} B={B_MAS} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
@@ -832,6 +877,7 @@ TOKEN_KERNELS = ("mas_kernel", "forward_sum_alpha_kernel",
 SKIP_KERNELS = ("mas_skip_kernel", "forward_sum_skip_alpha_kernel",
                 "forward_sum_skip_gamma_kernel")
 MOBO_KERNELS = ("mobo_alpha_kernel", "mobo_bp_kernel", "mobo_beta_kernel")
+CLUSTER_KERNELS = ("mobo_alpha_kernel", "mobo_beta_kernel")
 
 
 def require_launches(where, launches, at_least, names=TOKEN_KERNELS):
@@ -1501,20 +1547,21 @@ def plain_skip_loss(logp, tl, ml):
     return torch.mean(-torch.where(valid, total, 0.0) / ml.clamp(min=1))
 
 
-def mobo_inputs(dev, seed, T_y, D):
-    """The MoBo sweeps' inputs at B=16, 128 tokens x T_y frames, ragged and
-    feasible (t_x <= t_y <= t_x * D), with edge items 0-3: t_x = 1; a
-    full item (t_x = T_X, t_y = T_y, the end position is the grid's last);
-    an item without a boundary sequence (t_y > t_x * D); t_x = 0. Returns
-    the token-major grid of _prep_energies and the lengths."""
+def mobo_inputs(dev, seed, T_y, D, B=B_OTA):
+    """The MoBo sweeps' inputs at B items (16 unless given), 128 tokens x
+    T_y frames, ragged and feasible (t_x <= t_y <= t_x * D), with edge
+    items 0-3: t_x = 1; a full item (t_x = T_X, t_y = T_y, the end position
+    is the grid's last); an item without a boundary sequence (t_y > t_x *
+    D); t_x = 0. Returns the token-major grid of _prep_energies and the
+    lengths."""
     from aligner_tpu_torch.ops.mobo import _prep_energies
     rng = np.random.default_rng(seed)
-    energies = rng.standard_normal((B_OTA, T_y, T_X)).astype(np.float32)
-    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
-    t_y = np.clip(rng.integers(T_y // 4, T_y + 1, B_OTA), t_x,
+    energies = rng.standard_normal((B, T_y, T_X)).astype(np.float32)
+    t_x = rng.integers(T_X // 2, T_X + 1, B).astype(np.int32)
+    t_y = np.clip(rng.integers(T_y // 4, T_y + 1, B), t_x,
                   np.minimum(t_x * D, T_y)).astype(np.int32)
     t_x[:4] = [1, T_X, 4, 0]
-    t_y[:4] = [min(D, T_y) - 1, T_y, 4 * D + 40, T_y // 2]
+    t_y[:4] = [min(D, T_y) - 1, T_y, min(4 * D + 40, T_y), T_y // 2]
     tx = torch.from_numpy(t_x).to(dev)
     ty = torch.from_numpy(t_y).to(dev)
     return _prep_energies(torch.from_numpy(energies).to(dev), tx, ty), tx, ty
@@ -1577,21 +1624,26 @@ def mobo_grads(energies, tx, ty, D, weights):
 
 
 def phase_mobo_kernels(dev):
-    """H7, H8 and H9 against their plain versions on the card; returns
-    their max abs differences (H8: the count of unequal backpointers)."""
+    """H7, H8 and H9 against their plain versions on the card at each of
+    MOBO_SHAPES (seed, B, T_y, D): the main path's shape, a small window,
+    a slice barely wider than D, and B = 64 where the cluster is smaller.
+    Returns their max abs differences (H8: the count of unequal
+    backpointers)."""
     from aligner_tpu_torch.ops import mobo_kernel as mb
     errs = [0.0, 0.0, 0.0]
-    for seed, T_y, D in ((15, T_Y, D_MOBO), (16, 300, 4)):
-        e_tm, tx, ty = mobo_inputs(dev, seed, T_y, D)
+    for seed, B, T_y, D in MOBO_SHAPES:
+        e_tm, tx, ty = mobo_inputs(dev, seed, T_y, D, B)
         logB = mb.mobo_alpha(e_tm, tx, D)
         bp, durs = mb.mobo_bp(e_tm, tx, ty, D)
         betas = mb.mobo_beta(e_tm, tx, ty, D)
         torch.cuda.synchronize()
         want_bp, want_durs = mb.mobo_bp_plain(e_tm, tx, ty, D)
-        errs[0] = max(errs[0], require_live_close(
-            "H7", logB, mb.mobo_alpha_plain(e_tm, tx, D)))
-        errs[2] = max(errs[2], require_live_close(
-            "H9", betas, mb.mobo_beta_plain(e_tm, tx, ty, D)))
+        alpha_err = require_live_close(
+            "H7", logB, mb.mobo_alpha_plain(e_tm, tx, D))
+        beta_err = require_live_close(
+            "H9", betas, mb.mobo_beta_plain(e_tm, tx, ty, D))
+        errs[0] = max(errs[0], alpha_err)
+        errs[2] = max(errs[2], beta_err)
         xs = torch.arange(T_X, device=dev)[:, None, None]
         live_tokens = (xs < tx[None, :, None]).expand_as(bp)
         errs[1] = max(errs[1], float((bp != want_bp)[live_tokens].sum()))
@@ -1618,9 +1670,8 @@ def phase_mobo_kernels(dev):
         energies = e_tm[:, :, 1:].permute(1, 2, 0).contiguous()
         weights = (ok.float(), *(torch.from_numpy(rng.standard_normal(shape)
                                                   .astype(np.float32)).to(dev)
-                                 for shape in ((B_OTA, T_y, T_X),
-                                               (B_OTA, T_X),
-                                               (B_OTA, T_X, T_y))))
+                                 for shape in ((B, T_y, T_X), (B, T_X),
+                                               (B, T_X, T_y))))
         got = mobo_grads(energies, tx, ty, D, weights)
         with plain_route():
             want = mobo_grads(energies, tx, ty, D, weights)
@@ -1631,11 +1682,13 @@ def phase_mobo_kernels(dev):
             torch.testing.assert_close(g, w, rtol=MOBO_GRAD_RTOL,
                                        atol=MOBO_GRAD_ATOL)
         grad_err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        log(15, f"H7, H8, H9 D={D}: B={B_OTA} {T_X} tokens x {T_y + 1} "
+        C, w = mb._cluster_plan(B, T_y + 1, D)
+        log(15, f"H7, H8, H9 D={D}: B={B} {T_X} tokens x {T_y + 1} "
                 f"positions with edge items (t_x=1, full, no boundary "
-                f"sequence, t_x=0): live cells within rtol {MOBO_RTOL} / "
-                f"atol {MOBO_ATOL} of mobo_alpha_plain and mobo_beta_plain "
-                f"(max abs err {errs[0]:.3g} and {errs[2]:.3g}), dead cells "
+                f"sequence, t_x=0); H7 and H9 in clusters of C={C} blocks of "
+                f"w={w} positions: live cells within rtol {MOBO_RTOL} / atol "
+                f"{MOBO_ATOL} of mobo_alpha_plain and mobo_beta_plain (max "
+                f"abs err {alpha_err!r} and {beta_err!r}), dead cells "
                 f"below NEG / 2; backpointers on tokens < t_x and durations "
                 f"equal to mobo_bp_plain's; mobo_forward's and mobo_loss's "
                 f"backward within rtol {MOBO_GRAD_RTOL} / atol "

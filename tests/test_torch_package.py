@@ -189,6 +189,16 @@ def test_bench_mas_failure_is_an_error_line_and_exit_1(args, error):
     assert rec["vs_baseline"] == 0.0 and rec["unit"] == "paths/s"
 
 
+def test_probe_barriers_without_a_card_is_an_error_line_and_exit_1(
+        monkeypatch, capsys):
+    """The barrier probe times the card only: with no CUDA device it
+    prints an error line and returns 1, building nothing."""
+    from aligner_tpu_torch import probe_barriers
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_barriers.main() == 1
+    assert json.loads(capsys.readouterr().out) == {"error": "no CUDA device"}
+
+
 def test_cpu_route_launches_no_kernel():
     at.reset_kernel_launches()
     value, t_x, t_y = ragged(0, 4, 6, 15)
@@ -427,13 +437,20 @@ def test_skip_sweep_kernels_match_plain(cuda, seed, B, T_x, T_y, cost):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,B,T_x,T_y,D", [(20, 6, 12, 40, 6),
                                               (21, 5, 128, 300, 4),
-                                              (22, 4, 40, 1100, 32)])
+                                              (22, 4, 40, 1100, 32),
+                                              (23, 4, 12, 130, 32),
+                                              (24, 4, 90, 90, 1),
+                                              (25, 64, 128, 1024, 32)])
 def test_mobo_kernels_match_plain(cuda, seed, B, T_x, T_y, D):
     """H7 and H9 within rtol 1e-6 / atol 1e-5 of the plain sweeps on live
     cells and below NEG / 2 on dead ones; H8's backpointers equal on
-    tokens < t_x and 0 past them, its walk's durations equal; the last
-    case strides threads over T_y1 = 1101 > 1024, the second has an odd
-    T_y1 that is no multiple of the block size."""
+    tokens < t_x and 0 past them, its walk's durations equal. H8 strides
+    threads over T_y1 = 1101 > 1024 in the third case; the second has an
+    odd T_y1 that is no multiple of the block size. H7 and H9 run in the
+    clusters of `_cluster_plan`: slices barely wider than D in the fourth
+    case (T_y1 = 131, D = 32), D = 1 in the fifth, and at B = 64 x 1025 a
+    smaller cluster whose z rows live in the output; item 1 has t_x = T_x
+    in every case."""
     energies, t_x, t_y = mobo_ragged(seed, B, T_x, T_y, D)
     tx, ty = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
     e_tm = mobo._prep_energies(torch.from_numpy(energies).to(cuda), tx, ty)

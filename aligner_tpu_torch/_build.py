@@ -46,14 +46,15 @@ _SIGNATURES = {
                                  _I32, _I32, _P],
     "forward_sum_grad_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
                                 _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
-                                _I32, _P],
+                                _I32, _I32, _I32, _I32, _P],
     "mas_skip_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
                         _I64, _I32, _I32, _I32, _F32, _F32, _P],
     "forward_sum_skip_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
                                       _I32, _I32, _F32, _P],
     "forward_sum_skip_gamma_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64,
                                       _I64, _P, _P, _P, _P, _I64, _I64, _I64,
-                                      _I32, _I32, _I32, _F32, _P],
+                                      _I32, _I32, _I32, _I32, _I32, _I32,
+                                      _F32, _P],
     "mobo_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _I32, _I32, _I32,
                           _I32, _I32, _I32, _P],
     "mobo_bp_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I32, _I32,
@@ -167,6 +168,20 @@ def load_library() -> ctypes.CDLL:
         lib.aligner_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
         return lib
+
+
+def build_probe(name: str, source: str) -> ctypes.CDLL:
+    """Compile a probe's own CUDA `source` (nothing of the package's
+    library) into `_build/<name>.so` and load it."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    src = os.path.join(_BUILD_DIR, f"{name}.cu")
+    lib_path = os.path.join(_BUILD_DIR, f"{name}.so")
+    with open(src, "w") as f:
+        f.write(source)
+    subprocess.run([_nvcc(), *NVCC_FLAGS[:4], "-shared", "-Xcompiler",
+                    "-fPIC", "-o", lib_path, src], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(lib_path)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,6 +21,8 @@
 // with the advance arm NEG at x == t_x-1 and x == T_x-1, M clamped to
 // NEG at or below NEG/2, and frames y >= t_y passing the message through.
 // The caller zeroes `total` for invalid items, so the exp cannot overflow.
+// An item outside 1 <= t_x <= min(t_y, T_x) has gamma 0 everywhere (its
+// end column is all NEG, or no path meets alpha's), so it runs no chain.
 //
 // logaddexp is jnp.logaddexp's form, m + log1p(exp(-|a-b|)) with
 // m = max(a, b), in precise expf/log1pf: the file is built without
@@ -34,17 +36,14 @@
 // B*T_y*T_x*4 bytes. Reads and writes go through strides and are
 // x-contiguous in the port's layouts, so each column step is one coalesced
 // row per item, and the transposed views the loss passes are never copied.
-// One block per item runs the items in parallel.
+// One block per item runs the items in parallel. H3 is the sweep of
+// csrc/posterior_sweep.cuh, which says how its design keeps the loads, the
+// posterior and the padded frames off the chain.
 #include <cuda_runtime.h>
 
+#include "posterior_sweep.cuh"
+
 namespace {
-
-constexpr float NEG = -1e15f;
-
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
 
 __global__ void forward_sum_alpha_kernel(
     const float* __restrict__ lp, long long sl_y, long long sl_b,
@@ -86,52 +85,28 @@ __global__ void forward_sum_alpha_kernel(
     final_col[static_cast<long long>(b) * T_x + x] = prev[x];
 }
 
-__global__ void forward_sum_grad_kernel(
+template <int CELLS, int RING>
+__global__ void __launch_bounds__(1024) forward_sum_grad_kernel(
     const float* __restrict__ lp, long long sl_y, long long sl_b,
     long long sl_x, const float* __restrict__ alphas, long long sa_y,
     long long sa_b, long long sa_x, const float* __restrict__ total,
     const int* __restrict__ t_x, const int* __restrict__ t_y,
     float* __restrict__ gamma, long long sg_y, long long sg_b,
     long long sg_x, int T_x, int T_y) {
-  extern __shared__ float cols[];  // two message columns of T_x floats
   const int b = blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
-  const float tot = total[b];
-  const float* l = lp + b * sl_b;
-  const float* a = alphas + b * sa_b;
-  float* g = gamma + b * sg_b;
-  float* nxt = cols;
-  float* cur = cols + T_x;
-
-  for (int x = threadIdx.x; x < T_x; x += blockDim.x) nxt[x] = NEG;
-  __syncthreads();
-
-  for (int y = T_y - 1; y >= 0; --y) {
-    for (int x = threadIdx.x; x < T_x; x += blockDim.x) {
-      float m = nxt[x];
-      float gm = 0.f;
-      if (y < ty) {
-        float beta;
-        if (y == ty - 1) {
-          beta = x == tx - 1 ? 0.f : NEG;
-        } else {
-          const float adv = (x == tx - 1 || x == T_x - 1) ? NEG : nxt[x + 1];
-          beta = logaddexp(m, adv);
-        }
-        const float lv = l[y * sl_y + x * sl_x];
-        if (lv > 0.5f * NEG) gm = expf(a[y * sa_y + x * sa_x] + beta - tot);
-        m = lv + beta;
-        if (!(m > 0.5f * NEG)) m = NEG;
-      }
-      cur[x] = m;
-      g[y * sg_y + x * sg_x] = gm;
-    }
-    __syncthreads();
-    float* t = nxt;
-    nxt = cur;
-    cur = t;
-  }
+  const ItemLattices item{lp + b * sl_b,     sl_y, sl_x,
+                          alphas + b * sa_b, sa_y, sa_x,
+                          gamma + b * sg_b,  sg_y, sg_x};
+  const bool chain = tx >= 1 && tx <= ty && tx <= T_x;
+  posterior_sweep<CELLS, RING>(
+      item, T_x, T_y, ty, chain, total[b],
+      [=](const float* nxt, int x, bool end) {
+        if (end) return x == tx - 1 ? 0.f : NEG;
+        const float adv = (x == tx - 1 || x == T_x - 1) ? NEG : nxt[x + 1];
+        return logaddexp(nxt[x], adv);
+      });
 }
 
 }  // namespace
@@ -162,24 +137,20 @@ extern "C" int forward_sum_alpha_launch(const float* lp, long long sl_y,
 // lp, alphas: f32 lattices read as [T_y, B, T_x] through element strides
 // (lp already masked with NEG at x >= t_x); total: f32 [B], 0 for invalid
 // items; t_x, t_y: int32 [B]; gamma: f32 written as [T_y, B, T_x] through
-// element strides sg_*. Returns cudaGetLastError() after the launch.
+// element strides sg_*; threads, cells, ring: the wrapper's plan. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// that was not built.
 extern "C" int forward_sum_grad_launch(
     const float* lp, long long sl_y, long long sl_b, long long sl_x,
     const float* alphas, long long sa_y, long long sa_b, long long sa_x,
     const float* total, const int* t_x, const int* t_y, float* gamma,
     long long sg_y, long long sg_b, long long sg_x, int B, int T_x, int T_y,
-    void* stream) {
-  const int threads = T_x >= 1024 ? 1024 : ((T_x + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(T_x) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        forward_sum_grad_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  forward_sum_grad_kernel<<<B, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      lp, sl_y, sl_b, sl_x, alphas, sa_y, sa_b, sa_x, total, t_x, t_y, gamma,
-      sg_y, sg_b, sg_x, T_x, T_y);
-  return static_cast<int>(cudaGetLastError());
+    int threads, int cells, int ring, void* stream) {
+  return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
+    using P = decltype(plan);
+    return launch_sweep(forward_sum_grad_kernel<P::cells, P::ring>, B,
+                        threads, cells, T_x, ring, stream, lp, sl_y, sl_b,
+                        sl_x, alphas, sa_y, sa_b, sa_x, total, t_x, t_y,
+                        gamma, sg_y, sg_b, sg_x, T_x, T_y);
+  }));
 }

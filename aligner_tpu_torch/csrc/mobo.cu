@@ -79,6 +79,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -231,19 +233,6 @@ inline int sweep_threads(int w) {
   const int groups = 1024 / tc < PROLOGUE_GROUPS ? 1024 / tc
                                                  : PROLOGUE_GROUPS;
   return tc * (groups > 1 ? groups : 1);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned smem_address(const void* p) {

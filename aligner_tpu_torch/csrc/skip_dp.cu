@@ -45,7 +45,10 @@
 //                (y < t_y, lp > NEG/2), exactly 0 elsewhere
 // with M clamped to NEG at or below NEG/2 and frames y >= t_y passing the
 // message through. The caller zeroes `total` for invalid items, so the
-// exp cannot overflow.
+// exp cannot overflow. An item with t_x > t_y, t_y < 1, or neither end
+// state inside the lattice has gamma 0 everywhere and runs no chain; one
+// with t_x = 0 keeps its chain, since its pause-only path is a path of
+// the lattice and the plain version gives it mass.
 //
 // logaddexp is jnp.logaddexp's form in precise expf/log1pf; the file is
 // built without --use_fast_math and has no multiply to contract.
@@ -59,18 +62,16 @@
 // threads stride over T_s > 1024 and the neighbour reads stay inside the
 // shared column. Lattices are read and written through strides, so the
 // model's frame-major lattice is read in place, state-contiguous (one
-// coalesced row per step); H4's moves (uint8 [B,T_y,T_s]) stay in L2.
+// coalesced row per step); H4's moves (uint8 [B,T_y,T_s]) stay in L2. H6
+// is the sweep of csrc/posterior_sweep.cuh (two nested logaddexp where H3
+// has one), which says how its design keeps the loads, the posterior and
+// the padded frames off the chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "posterior_sweep.cuh"
+
 namespace {
-
-constexpr float NEG = -1e15f;
-
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
 
 __global__ void mas_skip_kernel(const float* __restrict__ value,
                                 long long sv_b, long long sv_s,
@@ -187,60 +188,37 @@ __global__ void forward_sum_skip_alpha_kernel(
     final_col[static_cast<long long>(b) * T_s + s] = prev[s];
 }
 
-__global__ void forward_sum_skip_gamma_kernel(
+template <int CELLS, int RING>
+__global__ void __launch_bounds__(1024) forward_sum_skip_gamma_kernel(
     const float* __restrict__ lp, long long sl_y, long long sl_b,
     long long sl_s, const float* __restrict__ alphas, long long sa_y,
     long long sa_b, long long sa_s, const float* __restrict__ total,
     const int* __restrict__ t_x, const int* __restrict__ t_y,
     float* __restrict__ gamma, long long sg_y, long long sg_b,
     long long sg_s, int T_s, int T_y, float enter_cost) {
-  extern __shared__ float cols[];  // two message columns of T_s floats
   const int b = blockIdx.x;
-  const long long ts = 2LL * t_x[b] + 1;
+  const int tx = t_x[b];
+  const long long ts = 2LL * tx + 1;
   const int ty = t_y[b];
-  const float tot = total[b];
-  const float* l = lp + b * sl_b;
-  const float* a = alphas + b * sa_b;
-  float* g = gamma + b * sg_b;
-  float* nxt = cols;
-  float* cur = cols + T_s;
-
-  for (int s = threadIdx.x; s < T_s; s += blockDim.x) nxt[s] = NEG;
-  __syncthreads();
-
-  for (int y = T_y - 1; y >= 0; --y) {
-    for (int s = threadIdx.x; s < T_s; s += blockDim.x) {
-      float m = nxt[s];
-      float gm = 0.f;
-      if (y < ty) {
-        float beta;
-        if (y == ty - 1) {
-          beta = (s == ts - 1 || s == ts - 2) ? 0.f : NEG;
-        } else {
-          float m1 = NEG;
-          float m2 = NEG;
-          // s + 1 < ts keeps the arc inside the item; s + 1 < T_s keeps
-          // the read inside the shared column when ts exceeds it.
-          if (s + 1 < ts && s + 1 < T_s) {
-            m1 = nxt[s + 1];
-            if (s & 1) m1 += enter_cost;
-          }
-          if ((s & 1) && s + 2 < ts && s + 2 < T_s) m2 = nxt[s + 2];
-          beta = logaddexp(logaddexp(m, m1), m2);
+  const ItemLattices item{lp + b * sl_b,     sl_y, sl_s,
+                          alphas + b * sa_b, sa_y, sa_s,
+                          gamma + b * sg_b,  sg_y, sg_s};
+  const bool chain = ty >= 1 && tx >= 0 && tx <= ty && ts - 2 < T_s;
+  posterior_sweep<CELLS, RING>(
+      item, T_s, T_y, ty, chain, total[b],
+      [=](const float* nxt, int s, bool end) {
+        if (end) return (s == ts - 1 || s == ts - 2) ? 0.f : NEG;
+        float m1 = NEG;
+        float m2 = NEG;
+        // s + 1 < ts keeps the arc inside the item; s + 1 < T_s keeps the
+        // read inside the shared column when ts exceeds it.
+        if (s + 1 < ts && s + 1 < T_s) {
+          m1 = nxt[s + 1];
+          if (s & 1) m1 += enter_cost;
         }
-        const float lv = l[y * sl_y + s * sl_s];
-        if (lv > 0.5f * NEG) gm = expf(a[y * sa_y + s * sa_s] + beta - tot);
-        m = lv + beta;
-        if (!(m > 0.5f * NEG)) m = NEG;
-      }
-      cur[s] = m;
-      g[y * sg_y + s * sg_s] = gm;
-    }
-    __syncthreads();
-    float* t = nxt;
-    nxt = cur;
-    cur = t;
-  }
+        if ((s & 1) && s + 2 < ts && s + 2 < T_s) m2 = nxt[s + 2];
+        return logaddexp(logaddexp(nxt[s], m1), m2);
+      });
 }
 
 int block_threads(int T_s) {
@@ -301,20 +279,20 @@ extern "C" int forward_sum_skip_alpha_launch(
 // lp, alphas: f32 lattices read as [T_y, B, T_s] through element strides
 // (lp already masked with NEG at s >= 2*t_x+1); total: f32 [B], 0 for
 // invalid items; t_x, t_y: int32 [B]; gamma: f32 written as [T_y, B, T_s]
-// through element strides sg_*. Returns cudaGetLastError() after the
-// launch.
+// through element strides sg_*; threads, cells, ring: the wrapper's plan.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a plan that was not built.
 extern "C" int forward_sum_skip_gamma_launch(
     const float* lp, long long sl_y, long long sl_b, long long sl_s,
     const float* alphas, long long sa_y, long long sa_b, long long sa_s,
     const float* total, const int* t_x, const int* t_y, float* gamma,
     long long sg_y, long long sg_b, long long sg_s, int B, int T_s, int T_y,
-    float enter_cost, void* stream) {
-  size_t smem;
-  cudaError_t err = column_smem(forward_sum_skip_gamma_kernel, T_s, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  forward_sum_skip_gamma_kernel<<<B, block_threads(T_s), smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      lp, sl_y, sl_b, sl_s, alphas, sa_y, sa_b, sa_s, total, t_x, t_y, gamma,
-      sg_y, sg_b, sg_s, T_s, T_y, enter_cost);
-  return static_cast<int>(cudaGetLastError());
+    int threads, int cells, int ring, float enter_cost, void* stream) {
+  return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
+    using P = decltype(plan);
+    return launch_sweep(forward_sum_skip_gamma_kernel<P::cells, P::ring>, B,
+                        threads, cells, T_s, ring, stream, lp, sl_y, sl_b,
+                        sl_s, alphas, sa_y, sa_b, sa_s, total, t_x, t_y,
+                        gamma, sg_y, sg_b, sg_s, T_s, T_y, enter_cost);
+  }));
 }

@@ -7,7 +7,9 @@
 * kernel H3, the beta sweep that emits the posterior gamma (the loss
   gradient up to its sign), counterpart of forward_sum_grad_pallas;
   plain version `gamma_plain`, the recursion of `_beta_scan` in the
-  message form of `_beta_grad_kernel`.
+  message form of `_beta_grad_kernel`. H3 and the skip-state H6 launch
+  with `_sweep_plan`'s threads, cells per thread and ring of rows fetched
+  ahead (`csrc/posterior_sweep.cuh`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -21,6 +23,39 @@ from .. import _build
 NEG = -1e15
 KERNEL = "forward_sum_alpha_kernel"
 GRAD_KERNEL = "forward_sum_grad_kernel"
+
+# (cells per thread, ring depth) of the posterior sweeps H3 and H6: the
+# pairs `with_plan` in csrc/posterior_sweep.cuh builds. Each pair's ring
+# is the deepest of at most 8 frames whose rows fit in a block's shared
+# memory beside the two message columns at the widest column the pair
+# takes, cells * MAX_THREADS.
+SWEEP_PLANS = ((1, 8), (2, 8), (3, 8), (4, 6), (6, 3), (8, 2))
+MAX_THREADS = 1024
+
+
+def _sweep_plan(T: int) -> tuple[int, int, int, int]:
+    """(threads, cells per thread, ring depth, shared-memory bytes) of H3
+    or H6 over a column of T cells: the fewest cells per thread with
+    which MAX_THREADS threads cover the column, then the fewest threads,
+    a multiple of 32, that cover it with as many cells each. The bytes
+    are the kernel's layout: two message columns and `ring` slots of an
+    lp row and an alpha row, each threads * cells floats. Raises
+    ValueError past 8192 cells."""
+    for cells, ring in SWEEP_PLANS:
+        if cells * MAX_THREADS >= T:
+            needed = -(-T // cells)
+            threads = -(-needed // 32) * 32
+            return threads, cells, ring, 8 * threads * cells * (1 + ring)
+    raise ValueError(f"the posterior sweeps take at most "
+                     f"{SWEEP_PLANS[-1][0] * MAX_THREADS} cells a column, "
+                     f"got {T}")
+
+
+def _gamma_out(B: int, T_y: int, T: int, device) -> torch.Tensor:
+    """The posterior's output, which a sweep writes whole: a [T_y, B, T]
+    view of an uninitialised [B, T_y, T] tensor."""
+    return torch.empty((B, T_y, T), dtype=torch.float32,
+                       device=device).transpose(0, 1)
 
 
 def alpha_plain(lp_tm: torch.Tensor, t_y: torch.Tensor) -> torch.Tensor:
@@ -157,10 +192,10 @@ def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
     T_y, B, T_x = lp_tm.shape
     if lp_tm.device.type == "cpu":
         return gamma_plain(lp_tm, alphas, total, t_x, t_y)
-    gamma = torch.empty((B, T_y, T_x), dtype=torch.float32,
-                        device=lp_tm.device).transpose(0, 1)
+    gamma = _gamma_out(B, T_y, T_x, lp_tm.device)
     if lp_tm.numel() == 0:
         return gamma
+    threads, cells, ring, _ = _sweep_plan(T_x)
     total, t_x, t_y = total.contiguous(), t_x.contiguous(), t_y.contiguous()
     lib = _build.load_library()
     with torch.cuda.device(lp_tm.device):
@@ -168,7 +203,7 @@ def forward_sum_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
             lp_tm.data_ptr(), *lp_tm.stride(), alphas.data_ptr(),
             *alphas.stride(), total.data_ptr(), t_x.data_ptr(),
             t_y.data_ptr(), gamma.data_ptr(), *gamma.stride(), B, T_x, T_y,
-            torch.cuda.current_stream().cuda_stream)
+            threads, cells, ring, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, GRAD_KERNEL)
     _build.LAUNCHES[GRAD_KERNEL] += 1
     return gamma

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .forward_sum_kernel import NEG, _check_grad_inputs
+from .forward_sum_kernel import (NEG, _check_grad_inputs, _gamma_out,
+                                 _sweep_plan)
 from .forward_sum_kernel import _check_lattice as _check_frame_major
 from .mas_kernel import _check_lattice as _check_state_major
 from .mas_kernel import _on_cuda
@@ -262,10 +263,10 @@ def forward_sum_skip_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
     T_y, B, T_s = lp_tm.shape
     if lp_tm.device.type == "cpu":
         return gamma_skip_plain(lp_tm, alphas, total, t_x, t_y, enter_cost)
-    gamma = torch.empty((B, T_y, T_s), dtype=torch.float32,
-                        device=lp_tm.device).transpose(0, 1)
+    gamma = _gamma_out(B, T_y, T_s, lp_tm.device)
     if lp_tm.numel() == 0:
         return gamma
+    threads, cells, ring, _ = _sweep_plan(T_s)
     total, t_x, t_y = total.contiguous(), t_x.contiguous(), t_y.contiguous()
     lib = _build.load_library()
     with torch.cuda.device(lp_tm.device):
@@ -273,7 +274,8 @@ def forward_sum_skip_grad(lp_tm: torch.Tensor, alphas: torch.Tensor,
             lp_tm.data_ptr(), *lp_tm.stride(), alphas.data_ptr(),
             *alphas.stride(), total.data_ptr(), t_x.data_ptr(),
             t_y.data_ptr(), gamma.data_ptr(), *gamma.stride(), B, T_s, T_y,
-            float(enter_cost), torch.cuda.current_stream().cuda_stream)
+            threads, cells, ring, float(enter_cost),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, GAMMA_KERNEL)
     _build.LAUNCHES[GAMMA_KERNEL] += 1
     return gamma

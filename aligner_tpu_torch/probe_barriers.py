@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import subprocess
 import sys
 
 SOURCE = r"""
@@ -77,15 +75,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print(json.dumps({"error": "no CUDA device"}))
         return 1
-    os.makedirs(_build._BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build._BUILD_DIR, "probe_barriers.cu")
-    lib_path = os.path.join(_build._BUILD_DIR, "probe_barriers.so")
-    with open(src, "w") as f:
-        f.write(SOURCE)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:4], "-shared",
-                    "-Xcompiler", "-fPIC", "-o", lib_path, src], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(lib_path)
+    lib = _build.build_probe("probe_barriers", SOURCE)
     lib.time_barriers.restype = ctypes.c_float
     lib.time_barriers.argtypes = [ctypes.c_int] * 5
     torch.cuda.init()

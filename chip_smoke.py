@@ -24,10 +24,13 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
   7. CUDA-event times of each kernel against its plain version, beside
      the least time the card could take for the same bytes, operations
      and special-function results (H7's and H9's cluster plan beside them);
-     for H12 also the one library call that computes its function
+     for H2, H3, H5 and H6 also the time per frame of the longest item,
+     and H3 again at config 5's shape and at the profiled training
+     step's; for H12 also the one library call that computes its function
      (`torch.eq` into a float32 output), which the package never calls
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
-     atol 1e-6, and the loss gradient on the card against the plain one
+     atol 1e-6, into an output pre-filled with NaN, and the loss gradient
+     on the card against the plain one
   9. training path: train_aligner at B=16 on a synthetic corpus, launch
      counts, checkpoint restore and a resumed step, parameter gradients
      against a CPU copy, step times at B=16 and at B=64 x 2048 frames, a
@@ -37,8 +40,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      bit-identical, with edge items, two enter costs and T_s > 1024
  12. H5 (skip forward-sum alpha) against alpha_skip_plain and H6 (skip
      beta/posterior) against gamma_skip_plain, rtol 1e-5 / atol 1e-6, with
-     and without an enter cost, and the skip loss's backward against the
-     plain route's
+     and without an enter cost, H6 into an output pre-filled with NaN,
+     and the skip loss's backward against the plain route's
  13. pause-aware path with every plain version patched to raise:
      SkipBatchAligner on three requests, the pause OTA forward, and
      train_aligner on a silence-bearing corpus with the pause_bias
@@ -289,6 +292,23 @@ def outputs_prefilled_with_nan():
         yield
 
 
+@contextlib.contextmanager
+def gamma_prefilled_with_nan():
+    """While active, the posterior sweeps H3 and H6 write into an output
+    pre-filled with NaN (allocated uninitialised otherwise), so a cell
+    they leave unwritten shows."""
+    from aligner_tpu_torch.ops import forward_sum_kernel as fs
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
+    gamma_out = fs._gamma_out
+
+    def prefilled(*args):
+        return gamma_out(*args).fill_(float("nan"))
+
+    with patched_attrs([(fs, "_gamma_out", prefilled),
+                        (sk, "_gamma_out", prefilled)]):
+        yield
+
+
 def phase_two_pass_kernels(dev):
     """H10-H14 and H1's two halves against their plain versions on the
     card; returns each new kernel's max abs difference (0 or the phase
@@ -365,17 +385,33 @@ def phase_two_pass_kernels(dev):
     return errs
 
 
-def fs_inputs(seed, dev):
+def fs_inputs(seed, dev, B=B_OTA, T_x=T_X, T_y=T_Y, t_x=None, t_y=None):
+    """A forward-sum lattice [T_y, B, T_x] of log-softmax rows, ragged
+    unless the lengths are given: (lp_tm, t_x, t_y)."""
     from aligner_tpu_torch.ops.forward_sum import _masked_logp
     rng = np.random.default_rng(seed)
-    logits = rng.standard_normal((B_OTA, T_Y, T_X)).astype(np.float32) * 3
-    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
-    t_y = np.maximum(t_x, rng.integers(T_Y // 4, T_Y + 1, B_OTA)) \
-        .astype(np.int32)
+    logits = rng.standard_normal((B, T_y, T_x)).astype(np.float32) * 3
+    if t_x is None:
+        t_x = rng.integers(T_x // 2, T_x + 1, B).astype(np.int32)
+        t_y = np.maximum(t_x, rng.integers(T_y // 4, T_y + 1, B)) \
+            .astype(np.int32)
     tx = torch.from_numpy(t_x).to(dev)
     ty = torch.from_numpy(t_y).to(dev)
     lp = torch.log_softmax(torch.from_numpy(logits).to(dev), dim=-1)
     return _masked_logp(lp, tx).transpose(0, 1), tx, ty
+
+
+def fs_grad_inputs(seed, dev, **shape):
+    """H3's inputs on a lattice of `fs_inputs`: (lp_tm, alphas, total,
+    t_x, t_y)."""
+    from aligner_tpu_torch.ops.forward_sum import (_total_from_alphas,
+                                                   _valid_items)
+    from aligner_tpu_torch.ops.forward_sum_kernel import forward_sum_alpha
+    lp_tm, tx, ty = fs_inputs(seed, dev, **shape)
+    alphas, final = forward_sum_alpha(lp_tm, ty)
+    total = torch.where(_valid_items(tx, ty), _total_from_alphas(final, tx),
+                        0.0)
+    return lp_tm, alphas, total, tx, ty
 
 
 def phase_forward_sum(dev):
@@ -639,6 +675,11 @@ def phase_times(dev):
         **two_pass,
     }
     plan = "C={}, w={}".format(*mb._cluster_plan(B_OTA, T_Y + 1, D_MOBO))
+    # the sweeps over frames: the longest item's frames, which set the chain
+    frames = {"forward_sum_alpha_kernel": int(fty.max()),
+              "forward_sum_grad_kernel": int(gty.max()),
+              "forward_sum_skip_alpha_kernel": int(sgty.max()),
+              "forward_sum_skip_gamma_kernel": int(sgty.max())}
     times = {}
     for name, (kernel, plain, work, *library) in runs.items():
         ms, plain_ms = abba_ms(kernel, plain)
@@ -653,7 +694,11 @@ def phase_times(dev):
                   f"({100 * bound_ms / ms:.1f}% of the kernel's time)")
                + (f"; library call {library_ms:.4f} ms" if library else "")
                + (f"; cluster plan {plan}" if name in CLUSTER_KERNELS
+                  else "")
+               + (f"; {ms * 1e6 / frames[name]:.1f} ns a frame over the "
+                  f"longest item's {frames[name]}" if name in frames
                   else ""))
+    posterior_times(dev)
     for B, D in ((64, D_MOBO), (B_SERVE, D_MOBO), (B_OTA, 1)):
         # H7 and H9 at a smaller cluster, at one block per item (B > the
         # card's SMs), and with D = 1, where a token step is the chain's
@@ -687,6 +732,28 @@ def phase_times(dev):
            f"timed here and called nowhere in the package; H12's plain "
            f"version is the two-call expression compare + cast)")
     return times
+
+
+def posterior_times(dev):
+    """H3 at config 5's shape and at the profiled training step's lattice
+    (phase 9's first batch: its lengths, random log-softmax rows), timed
+    as in phase 7, with the time per frame of the longest item."""
+    from aligner_tpu_torch.ops import forward_sum_kernel as fs
+    batch = train_batches()[0][0]
+    shapes = {"config 5": dict(B=B_LONG, T_y=T_Y_LONG),
+              "the profiled training step": dict(
+                  B=batch["tokens"].shape[0], T_x=batch["tokens"].shape[1],
+                  T_y=batch["mel"].shape[1],
+                  t_x=np.asarray(batch["text_lengths"], np.int32),
+                  t_y=np.asarray(batch["mel_lengths"], np.int32))}
+    for what, shape in shapes.items():
+        lp_tm, alphas, total, tx, ty = fs_grad_inputs(10, dev, **shape)
+        ms = cuda_ms(lambda: fs.forward_sum_grad(lp_tm, alphas, total, tx,
+                                                 ty), 20)
+        T_y, B, T_x = lp_tm.shape
+        log(7, f"forward_sum_grad_kernel at {what}'s shape, B={B} "
+               f"{T_x}x{T_y}: {ms:.4f} ms; {ms * 1e6 / int(ty.max()):.1f} "
+               f"ns a frame over the longest item's {int(ty.max())}")
 
 
 # Kernels whose byte bound says nothing: one thread follows a chain of
@@ -825,7 +892,8 @@ def phase_grad(dev):
                                                           forward_sum_grad,
                                                           gamma_plain)
     lp_tm, alphas, total, tx, ty, log_probs = grad_inputs(dev)
-    gamma = forward_sum_grad(lp_tm, alphas, total, tx, ty)
+    with gamma_prefilled_with_nan():
+        gamma = forward_sum_grad(lp_tm, alphas, total, tx, ty)
     want = gamma_plain(lp_tm, alphas, total, tx, ty)
     torch.cuda.synchronize()
     if not torch.isfinite(gamma).all():
@@ -840,7 +908,8 @@ def phase_grad(dev):
                                plain_loss_grad(log_probs, tx, ty),
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
     log(8, f"H3 B={B_OTA} {T_X}x{T_Y} with edge items (t_y=1, t_x>t_y, "
-           f"t_x=0, NEG band, dead frame, -inf): within rtol {GRAD_RTOL} / "
+           f"t_x=0, NEG band, dead frame, -inf), into an output pre-filled "
+           f"with NaN: within rtol {GRAD_RTOL} / "
            f"atol {GRAD_ATOL} of gamma_plain (max abs err {err:.3g}), 0 off "
            f"{int((~live).sum())} dead cells; forward_sum_loss backward "
            f"on the card equals the plain versions' gradient")
@@ -877,6 +946,8 @@ TOKEN_KERNELS = ("mas_kernel", "forward_sum_alpha_kernel",
 SKIP_KERNELS = ("mas_skip_kernel", "forward_sum_skip_alpha_kernel",
                 "forward_sum_skip_gamma_kernel")
 MOBO_KERNELS = ("mobo_alpha_kernel", "mobo_bp_kernel", "mobo_beta_kernel")
+PACKAGE_KERNELS = (TOKEN_KERNELS + SKIP_KERNELS + MOBO_KERNELS
+                   + TWO_PASS_KERNELS)
 CLUSTER_KERNELS = ("mobo_alpha_kernel", "mobo_beta_kernel")
 
 
@@ -946,11 +1017,16 @@ def profile_step(phase, name, step, state, batch, reps=5):
         raise AssertionError(f"{name}: the profiler saw no device time")
     top = "; ".join(f"{key[:48]} {ms:.4f} ms x{count:g}"
                     for ms, count, key in kernels[:8])
+    # the package's own kernels, by name, wherever they rank
+    named = ((key.split("::", 1)[-1].split("(")[0].split("<")[0], ms, count)
+             for ms, count, key in kernels)
+    ours = "; ".join(f"{name} {ms:.4f} ms x{count:g}"
+                     for name, ms, count in named if name in PACKAGE_KERNELS)
     log(phase, f"profile of the {name} step over {reps} steps: back to back "
                f"{wall:.4f} ms per step, device busy {busy:.4f} ms (idle "
                f"share {1 - busy / wall:.3f}) in "
                f"{sum(c for _, c, _ in kernels):g} device operations; "
-               f"largest: {top}")
+               f"largest: {top}; the package's kernels: {ours}")
 
 
 def phase_train(dev):
@@ -1258,7 +1334,9 @@ def phase_skip_sums(dev):
     for cost in (0.0, -1.2):
         lp_tm, alphas, total, tx, ty, log_probs = skip_fs_inputs(dev, cost)
         want_alphas = alpha_skip_plain(lp_tm, ty, cost)
-        gamma = forward_sum_skip_grad(lp_tm, alphas, total, tx, ty, cost)
+        with gamma_prefilled_with_nan():
+            gamma = forward_sum_skip_grad(lp_tm, alphas, total, tx, ty,
+                                          cost)
         want = gamma_skip_plain(lp_tm, alphas, total, tx, ty, cost)
         torch.cuda.synchronize()
         if not torch.isfinite(gamma).all():
@@ -1285,7 +1363,8 @@ def phase_skip_sums(dev):
             rtol=GRAD_RTOL, atol=GRAD_ATOL)
         log(12, f"H5, H6 enter_cost {cost}: B={B_OTA} {2 * T_X + 1} states "
                 f"x {T_Y} with edge items (t_y=1, t_x>t_y, t_x=0, NEG "
-                f"band, dead frame, -inf): within rtol {GRAD_RTOL} / atol "
+                f"band, dead frame, -inf), H6 into an output pre-filled with "
+                f"NaN: within rtol {GRAD_RTOL} / atol "
                 f"{GRAD_ATOL} of alpha_skip_plain and gamma_skip_plain (max "
                 f"abs err {alpha_err:.3g} and {gamma_err:.3g}), gamma 0 "
                 f"off {int((~live).sum())} dead cells; "

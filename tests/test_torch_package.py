@@ -199,6 +199,15 @@ def test_probe_barriers_without_a_card_is_an_error_line_and_exit_1(
     assert json.loads(capsys.readouterr().out) == {"error": "no CUDA device"}
 
 
+def test_probe_chain_without_a_card_is_an_error_line_and_exit_1(
+        monkeypatch, capsys):
+    """The chain probe, likewise: an error line and 1, nothing built."""
+    from aligner_tpu_torch import probe_chain
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_chain.main() == 1
+    assert json.loads(capsys.readouterr().out) == {"error": "no CUDA device"}
+
+
 def test_cpu_route_launches_no_kernel():
     at.reset_kernel_launches()
     value, t_x, t_y = ragged(0, 4, 6, 15)
@@ -345,29 +354,61 @@ def test_alpha_kernel_matches_plain(cuda, seed, B, T_x, T_y):
     torch.testing.assert_close(final, want[-1], rtol=1e-5, atol=0)
 
 
+@pytest.fixture
+def gamma_prefilled_with_nan(monkeypatch):
+    """H3 and H6 write into an output pre-filled with NaN, so a cell they
+    leave unwritten shows."""
+    gamma_out = forward_sum_kernel._gamma_out
+
+    def prefilled(*args):
+        return gamma_out(*args).fill_(float("nan"))
+
+    monkeypatch.setattr(forward_sum_kernel, "_gamma_out", prefilled)
+    monkeypatch.setattr(skip_dp_kernel, "_gamma_out", prefilled)
+
+
+def x_strided(lattice):
+    """The same [T_y, B, T] values as a view of a [B, T, T_y] tensor: the
+    column axis strided, as a state-major lattice is read."""
+    view = lattice.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    assert view.stride(2) != 1 or view.shape[0] == 1
+    return view
+
+
+# Posterior sweeps: ragged batches with edge items; T_y below the ring
+# depth of `_sweep_plan` (8 frames) and no multiple of it; every item at
+# t_y = T_y ("full"); lp and alphas read with a strided column ("state").
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,B,T_x,T_y", [(6, 6, 16, 70), (7, 3, 128, 512),
-                                            (8, 2, 1100, 1300)])
-def test_grad_kernel_matches_plain(cuda, seed, B, T_x, T_y):
+@pytest.mark.parametrize("seed,B,T_x,T_y,layout", [
+    (6, 6, 16, 70, "ragged"), (7, 3, 128, 512, "ragged"),
+    (8, 2, 1100, 1300, "ragged"), (9, 4, 3, 1, "ragged"),
+    (16, 6, 2, 2, "ragged"), (17, 6, 5, 5, "full"), (18, 6, 24, 37, "full"),
+    (19, 6, 40, 61, "state"), (20, 5, 1100, 77, "state")])
+def test_grad_kernel_matches_plain(cuda, gamma_prefilled_with_nan, seed, B,
+                                   T_x, T_y, layout):
     """H3's posterior within rtol 1e-5 / atol 1e-6 of gamma_plain on the
-    same alphas, exactly 0 off the live cells; edge items t_y = 1,
-    t_x > t_y and t_x = 0; the last case strides threads over
-    T_x > 1024."""
+    same alphas, every cell written and exactly 0 off the live cells;
+    edge items t_y = 1, t_x > t_y and t_x = 0; T_x = 1100 strides threads
+    over T_x > 1024 (two cells a thread)."""
     rng = np.random.default_rng(seed)
     lp = torch.log_softmax(torch.from_numpy(
         rng.standard_normal((B, T_y, T_x)).astype(np.float32)), -1).to(cuda)
-    t_x = rng.integers(1, T_x + 1, B)
+    t_x = rng.integers(1, min(T_x, T_y) + 1, B)
     t_y = np.maximum(t_x, rng.integers(1, T_y + 1, B))
     t_x[0], t_y[0] = 1, 1
     if B > 2:
-        t_x[1], t_y[1] = T_x, T_x // 2
+        t_x[1], t_y[1] = T_x, min(max(T_x // 2, 1), T_y)
         t_x[2] = 0
+    if layout == "full":
+        t_y[:] = T_y
     t_x, t_y = (torch.from_numpy(a.astype(np.int32)).to(cuda)
                 for a in (t_x, t_y))
     lp_tm = _masked_logp(lp, t_x).transpose(0, 1)
     alphas, final = forward_sum_kernel.forward_sum_alpha(lp_tm, t_y)
     total = torch.where(_valid_items(t_x, t_y),
                         _total_from_alphas(final, t_x), 0.0)
+    if layout == "state":
+        lp_tm, alphas = x_strided(lp_tm), x_strided(alphas)
     gamma = forward_sum_kernel.forward_sum_grad(lp_tm, alphas, total, t_x,
                                                 t_y)
     want = forward_sum_kernel.gamma_plain(lp_tm, alphas, total, t_x, t_y)
@@ -399,15 +440,21 @@ def test_mas_skip_kernel_matches_plain(cuda, seed, B, T_x, T_y, cost):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,B,T_x,T_y,cost", [(13, 6, 12, 70, 0.0),
-                                                 (14, 6, 128, 300, -1.3),
-                                                 (15, 2, 520, 700, 0.8)])
-def test_skip_sweep_kernels_match_plain(cuda, seed, B, T_x, T_y, cost):
+@pytest.mark.parametrize("seed,B,T_x,T_y,cost,layout", [
+    (13, 6, 12, 70, 0.0, "ragged"), (14, 6, 128, 300, -1.3, "ragged"),
+    (15, 2, 520, 700, 0.8, "ragged"), (21, 6, 1, 1, 0.5, "ragged"),
+    (22, 6, 2, 2, -0.7, "ragged"), (23, 6, 4, 5, 0.3, "full"),
+    (24, 6, 12, 37, -1.0, "full"), (25, 6, 12, 43, 0.6, "state"),
+    (26, 2, 520, 601, 0.2, "state")])
+def test_skip_sweep_kernels_match_plain(cuda, gamma_prefilled_with_nan,
+                                        seed, B, T_x, T_y, cost, layout):
     """H5's alpha lattice and H6's posterior within rtol 1e-5 / atol 1e-6
-    of the plain sweeps on the card, gamma exactly 0 off the live cells,
-    and the loss's backward equal to the plain route's; the last case
-    strides threads over T_s = 1041 > 1024."""
+    of the plain sweeps on the card, every cell of gamma written and
+    exactly 0 off the live cells, and the loss's backward equal to the
+    plain route's; T_x = 520 strides threads over T_s = 1041 > 1024."""
     value, t_x, t_y = skip_ragged(seed, B, T_x, T_y)
+    if layout == "full":
+        t_y[:] = T_y
     lp = torch.log_softmax(torch.from_numpy(value).transpose(1, 2), -1) \
         .contiguous().to(cuda)
     t_x, t_y = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
@@ -419,6 +466,8 @@ def test_skip_sweep_kernels_match_plain(cuda, seed, B, T_x, T_y, cost):
     valid = skip_dp._valid_items_skip(t_x, t_y, lp.shape[2])
     total = torch.where(valid,
                         skip_dp._total_from_alphas_skip(final, t_x), 0.0)
+    if layout == "state":
+        lp_tm, alphas = x_strided(lp_tm), x_strided(alphas)
     gamma = skip_dp_kernel.forward_sum_skip_grad(lp_tm, alphas, total, t_x,
                                                  t_y, cost)
     want = skip_dp_kernel.gamma_skip_plain(lp_tm, alphas, total, t_x, t_y,

@@ -43,12 +43,13 @@ _SIGNATURES = {
     "mas_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _I64,
                    _P, _I32, _I32, _I32, _F32, _P],
     "forward_sum_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
-                                 _I32, _I32, _P],
+                                 _I32, _I32, _I32, _I32, _I32, _P],
     "forward_sum_grad_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
                                 _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _P],
     "mas_skip_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
-                        _I64, _I32, _I32, _I32, _F32, _F32, _P],
+                        _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                        _I32, _F32, _F32, _P],
     "forward_sum_skip_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
                                       _I32, _I32, _F32, _P],
     "forward_sum_skip_gamma_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64,

@@ -29,60 +29,40 @@
 // --use_fast_math, since the loss and its gradient are held to the JAX
 // package at about 1e-5.
 //
-// What bounds both on this card: a chain of T_y dependent column steps per
+// What bounds both on this card: a chain of t_y dependent column steps per
 // item (a shared-memory exchange with the x-1 or x+1 neighbour, one expf
 // and one log1pf, one __syncthreads), i.e. latency, plus one pass over the
-// lattices: H2 writes alpha, H3 reads lp and alpha and writes gamma, each
-// B*T_y*T_x*4 bytes. Reads and writes go through strides and are
-// x-contiguous in the port's layouts, so each column step is one coalesced
-// row per item, and the transposed views the loss passes are never copied.
-// One block per item runs the items in parallel. H3 is the sweep of
-// csrc/posterior_sweep.cuh, which says how its design keeps the loads, the
-// posterior and the padded frames off the chain.
+// lattices: H2 reads lp and writes alpha, H3 reads lp and alpha and writes
+// gamma, each B*T_y*T_x*4 bytes. Reads and writes go through strides, so
+// the transposed views the loss passes are never copied. One block per
+// item runs the items in parallel. H2 is the sweep of
+// csrc/forward_sweep.cuh and H3 that of csrc/posterior_sweep.cuh, which
+// say how their design keeps the loads, the posterior and the frames past
+// t_y off the chain.
 #include <cuda_runtime.h>
 
+#include "forward_sweep.cuh"
 #include "posterior_sweep.cuh"
 
 namespace {
 
-__global__ void forward_sum_alpha_kernel(
+template <int CELLS, int RING>
+__global__ void __launch_bounds__(1024) forward_sum_alpha_kernel(
     const float* __restrict__ lp, long long sl_y, long long sl_b,
     long long sl_x, const int* __restrict__ t_y,
     float* __restrict__ alphas, float* __restrict__ final_col, int B,
     int T_x, int T_y) {
-  extern __shared__ float cols[];  // two alpha columns of T_x floats
   const int b = blockIdx.x;
-  const int ty = t_y[b];
-  const float* l = lp + b * sl_b;
-  float* prev = cols;
-  float* cur = cols + T_x;
-
-  for (int x = threadIdx.x; x < T_x; x += blockDim.x) prev[x] = NEG;
-  __syncthreads();
-
-  for (int y = 0; y < T_y; ++y) {
-    float* out = alphas + (static_cast<long long>(y) * B + b) * T_x;
-    for (int x = threadIdx.x; x < T_x; x += blockDim.x) {
-      float a;
-      if (y >= ty) {
-        a = prev[x];
-      } else if (y == 0) {
-        a = l[x * sl_x] + (x == 0 ? 0.f : NEG);
-      } else {
-        const float ps = x > 0 ? prev[x - 1] : NEG;
-        a = l[y * sl_y + x * sl_x] + logaddexp(prev[x], ps);
-      }
-      cur[x] = a;
-      out[x] = a;
-    }
-    __syncthreads();
-    float* t = prev;
-    prev = cur;
-    cur = t;
-  }
-
-  for (int x = threadIdx.x; x < T_x; x += blockDim.x)
-    final_col[static_cast<long long>(b) * T_x + x] = prev[x];
+  const ForwardLattices item{lp + b * sl_b,
+                             sl_y,
+                             sl_x,
+                             alphas + static_cast<long long>(b) * T_x,
+                             static_cast<long long>(B) * T_x,
+                             1,
+                             final_col + static_cast<long long>(b) * T_x};
+  forward_sweep<CELLS, RING>(
+      item, T_x, T_y, t_y[b], [](int x) { return x == 0 ? 0.f : NEG; },
+      [](const float* prev, int x) { return logaddexp(prev[x], prev[x - 1]); });
 }
 
 template <int CELLS, int RING>
@@ -113,25 +93,23 @@ __global__ void __launch_bounds__(1024) forward_sum_grad_kernel(
 
 // lp: f32 lattice read as [T_y, B, T_x] through element strides sl_*
 // (already masked with NEG at x >= t_x); t_y: int32 [B]; alphas: f32
-// [T_y, B, T_x] contiguous; final_col: f32 [B, T_x] contiguous. Returns
-// cudaGetLastError() after the launch.
+// [T_y, B, T_x] contiguous; final_col: f32 [B, T_x] contiguous; threads,
+// cells, ring: the wrapper's plan. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan that was not built.
 extern "C" int forward_sum_alpha_launch(const float* lp, long long sl_y,
                                         long long sl_b, long long sl_x,
                                         const int* t_y, float* alphas,
                                         float* final_col, int B, int T_x,
-                                        int T_y, void* stream) {
-  const int threads = T_x >= 1024 ? 1024 : ((T_x + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(T_x) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        forward_sum_alpha_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  forward_sum_alpha_kernel<<<B, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      lp, sl_y, sl_b, sl_x, t_y, alphas, final_col, B, T_x, T_y);
-  return static_cast<int>(cudaGetLastError());
+                                        int T_y, int threads, int cells,
+                                        int ring, void* stream) {
+  return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
+    using P = decltype(plan);
+    return launch_sweep(forward_sum_alpha_kernel<P::cells, P::ring>, B,
+                        threads, cells, T_x,
+                        forward_smem(threads * cells, P::ring), stream, lp,
+                        sl_y, sl_b, sl_x, t_y, alphas, final_col, B, T_x,
+                        T_y);
+  }));
 }
 
 // lp, alphas: f32 lattices read as [T_y, B, T_x] through element strides
@@ -149,8 +127,9 @@ extern "C" int forward_sum_grad_launch(
   return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
     using P = decltype(plan);
     return launch_sweep(forward_sum_grad_kernel<P::cells, P::ring>, B,
-                        threads, cells, T_x, ring, stream, lp, sl_y, sl_b,
-                        sl_x, alphas, sa_y, sa_b, sa_x, total, t_x, t_y,
-                        gamma, sg_y, sg_b, sg_x, T_x, T_y);
+                        threads, cells, T_x,
+                        sweep_smem(threads * cells, P::ring), stream, lp,
+                        sl_y, sl_b, sl_x, alphas, sa_y, sa_b, sa_x, total,
+                        t_x, t_y, gamma, sg_y, sg_b, sg_x, T_x, T_y);
   }));
 }

@@ -204,7 +204,7 @@ struct Plan {
 };
 
 // f(Plan<cells, ring>{}) for the pairs of ops/forward_sum_kernel.py:
-// SWEEP_PLANS; any other pair is refused.
+// SWEEP_PLANS (H2, H3 and H6); any other pair is refused.
 template <class F>
 cudaError_t with_plan(int cells, int ring, F f) {
   if (cells == 1 && ring == 8) return f(Plan<1, 8>{});
@@ -216,16 +216,16 @@ cudaError_t with_plan(int cells, int ring, F f) {
   return cudaErrorInvalidValue;
 }
 
-// Launch a sweep kernel, one block per item, with its shared memory
-// (opted in above 48 KB); threads must be a multiple of 32, at most 1024,
-// and cover the T cells.
+// Launch a sweep kernel, one block per item, with `smem` bytes of shared
+// memory (opted in above 48 KB); threads must be a multiple of 32, at most
+// 1024, and cover the T cells. The forward sweeps (csrc/forward_sweep.cuh,
+// H4 in csrc/skip_dp.cu) launch through it too, with their own layouts.
 template <class Kernel, class... Args>
 cudaError_t launch_sweep(Kernel kernel, int B, int threads, int cells,
-                         int T, int ring, void* stream, Args... args) {
+                         int T, size_t smem, void* stream, Args... args) {
   if (threads % 32 != 0 || threads > 1024 ||
       static_cast<long long>(threads) * cells < T)
     return cudaErrorInvalidValue;
-  const size_t smem = sweep_smem(threads * cells, ring);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

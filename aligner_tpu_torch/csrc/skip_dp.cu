@@ -58,14 +58,41 @@
 // the s-1, s-2 or s+1, s+2 neighbours and one __syncthreads each; H4 adds
 // a single-thread walk over the moves), i.e. latency, plus one pass over
 // the lattices. One block per item runs the items in parallel; the column
-// is double-buffered in shared memory, so a step takes one barrier;
-// threads stride over T_s > 1024 and the neighbour reads stay inside the
-// shared column. Lattices are read and written through strides, so the
-// model's frame-major lattice is read in place, state-contiguous (one
-// coalesced row per step); H4's moves (uint8 [B,T_y,T_s]) stay in L2. H6
-// is the sweep of csrc/posterior_sweep.cuh (two nested logaddexp where H3
-// has one), which says how its design keeps the loads, the posterior and
-// the padded frames off the chain.
+// is double-buffered in shared memory, so a step takes one barrier.
+// Lattices are read and written through strides, so the model's
+// frame-major lattice is read in place.
+//
+// H4 keeps on the chain only what the next frame needs:
+// * Moves as two bit planes. Each warp turns its cells' decisions into
+//   two 32-bit masks with __ballot_sync (advance taken; skip taken), and
+//   one lane stores both words for the frame. The planes live in shared
+//   memory where they fit beside the columns and the ring (8 bytes a
+//   frame per 32 states: 73.7 KB at 257 states x 1024 frames), else in a
+//   device-memory scratch [B, T_y, 2 * words], 16x fewer bytes than one
+//   move byte a cell; the wrapper's plan (ops/skip_dp_kernel.py:
+//   _skip_viterbi_plan, from the shape and strides, before the launch)
+//   says which. The walk then reads, four frames a round, the two words
+//   the state can be in, and takes each step with a shift and a subtract.
+// * Values fetched ahead by cp.async into a ring in shared memory, so no
+//   device-memory latency sits on the chain. Where the frames are strided
+//   (the pause model's frame-major view), each thread copies its own
+//   cells of frame y + RING - 1, one coalesced row a warp. Where they are
+//   contiguous (serving's state-major lattice), a row would cost each
+//   warp 32 lines of one float, and the load/store unit those lines take
+//   is the one the chain's shared-memory traffic needs; there each warp
+//   copies tiles of 8 frames x 4 states (32-byte runs) two tiles ahead,
+//   and every thread waits for them before a barrier 8 frames early.
+// * A frame step of one basic block: frame 0 peeled, two pad cells of
+//   -inf left of each column (no `if` for s < 2), the skip's and the
+//   cost's per-state rules as selects, copies predicated, columns and
+//   ring rows padded to threads x CELLS cells (cells at or past ts compute
+//   on what shared memory holds; no state reads a higher one).
+// * Only the item's frames: the chain stops at t_y, and invalid items
+//   return before it.
+// H5 still loads lp after its barrier; H6 is the sweep of
+// csrc/posterior_sweep.cuh (two nested logaddexp where H3 has one), which
+// says how its design keeps the loads, the posterior and the padded frames
+// off the chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,73 +100,173 @@
 
 namespace {
 
-__global__ void mas_skip_kernel(const float* __restrict__ value,
-                                long long sv_b, long long sv_s,
-                                long long sv_y, const int* __restrict__ t_x,
-                                const int* __restrict__ t_y,
-                                uint8_t* __restrict__ moves,
-                                float* __restrict__ path, long long sp_b,
-                                long long sp_s, long long sp_y, int T_s,
-                                int T_y, float max_neg_val,
-                                float enter_cost) {
-  extern __shared__ float cols[];  // two value columns of T_s floats
+// Shared memory of H4 whose threads hold `pitch` cells: the move planes
+// of `plane_frames` frames (0 when they live in device memory), RING value
+// rows of pitch + 4 floats and two columns behind two pad cells each.
+inline size_t skip_viterbi_smem(int pitch, int ring, int plane_frames) {
+  return static_cast<size_t>(plane_frames) * (pitch / 32) * sizeof(uint2) +
+         (static_cast<size_t>(ring) * (pitch + 4) + 2 * (pitch + 2)) *
+             sizeof(float);
+}
+
+constexpr int TILE = 8;  // frames of a tile: 8 frames x 4 states a warp
+
+template <int CELLS, int RING, bool SHARED_PLANES, bool TILES>
+__global__ void __launch_bounds__(1024) mas_skip_kernel(
+    const float* __restrict__ value, long long sv_b, long long sv_s,
+    long long sv_y, const int* __restrict__ t_x, const int* __restrict__ t_y,
+    uint2* __restrict__ scratch, float* __restrict__ path, long long sp_b,
+    long long sp_s, long long sp_y, int T_s, int T_y, float max_neg_val,
+    float enter_cost) {
+  static_assert((RING & (RING - 1)) == 0 && RING >= 2, "a power of 2");
+  static_assert(!TILES || RING >= 3 * TILE, "tiles fetched 2 tiles ahead");
+  extern __shared__ uint2 smem_planes[];
   const int b = blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
   if (tx < 1 || tx > ty || ty > T_y || tx > (T_s - 1) / 2) return;
   const int ts = 2 * tx + 1;
 
-  const float* v = value + b * sv_b;
-  uint8_t* moves_b = moves + static_cast<long long>(b) * T_y * T_s;
-  float* prev = cols;
-  float* cur = cols + T_s;
+  const int P = blockDim.x * CELLS;  // the pitch of a column
+  const int Q = P + 4;               // the pitch of a ring row
+  const int W = P / 32;              // plane words a frame
+  const int warps = blockDim.x / 32;
+  const int lane = threadIdx.x % 32;
+  // Frame y's moves at cell c: bit c % 32 of planes[y * W + c / 32], .x
+  // for an advance and .y for a skip.
+  uint2* const planes = SHARED_PLANES
+                            ? smem_planes
+                            : scratch + static_cast<long long>(b) * T_y * W;
+  float* const ring = reinterpret_cast<float*>(
+      smem_planes + (SHARED_PLANES ? static_cast<size_t>(T_y) * W : 0));
+  float* prev = ring + RING * Q + 2;  // v[., y - 1], -inf at -2 and -1
+  float* cur = prev + P + 2;
 
-  // Frame 0: only the start states {0, 1} are live, and no move is made.
-  for (int s = threadIdx.x; s < ts; s += blockDim.x) {
-    float a = max_neg_val;
-    if (s == 0) a = v[0] + enter_cost;
-    if (s == 1) a = v[sv_s];
-    prev[s] = a;
-    moves_b[s] = 0;
+  int cell[CELLS];
+  float cost[CELLS];   // the advance's cost: enter_cost into a pause
+  bool skips[CELLS];   // a skip lands on odd s >= 3 only
+  int tile_s[CELLS];   // tiles: this lane's state in sub-tile 0
+  const float* v_at[CELLS];  // this lane's next value to copy
+  const int tile_f = lane % TILE;  // tiles: this lane's frame in a tile
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    cell[k] = threadIdx.x + k * blockDim.x;
+    cost[k] = (cell[k] & 1) ? 0.f : enter_cost;
+    skips[k] = (cell[k] & 1) && cell[k] >= 3;
+    tile_s[k] = 32 * (threadIdx.x / 32 + k * warps) + lane / TILE;
+    v_at[k] = value + b * sv_b +
+              (TILES ? tile_s[k] * sv_s + tile_f * sv_y : cell[k] * sv_s);
   }
-  __syncthreads();
-
-  for (int y = 1; y < ty; ++y) {
-    for (int s = threadIdx.x; s < ts; s += blockDim.x) {
-      float best = prev[s];
-      uint8_t m = 0;
-      if (s >= 1) {
-        float cand = prev[s - 1];
-        if ((s & 1) == 0) cand += enter_cost;
-        if (cand > best) {
-          best = cand;
-          m = 1;
-        }
+  // The copies started at frame y's step, one commit group, none past
+  // frame t_y - 1 or state ts - 1. Rows: each thread its own cells of
+  // frame y + RING - 1. Tiles: each warp sub-tile y % TILE of the tile of
+  // frames two tiles ahead, lane l at state 4 * (y % TILE) + l / TILE of
+  // its 32 and frame l % TILE of the tile, so a warp reads 4 runs of TILE
+  // contiguous frames where a row would read 32 lines. The source moves
+  // by 4 states a sub-tile and to the next tile's frames after the last.
+  const long long next_sub = 4 * sv_s;
+  const long long next_tile = TILE * sv_y - (32 - 4) * sv_s;
+  auto fetch = [&](int y) {
+    if (TILES) {
+      const int j = y & (TILE - 1);
+      const int f = ((y >> 3) + 2) * TILE + tile_f;
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) {
+        const int s = tile_s[k] + 4 * j;
+        float* const dst = ring + (f & (RING - 1)) * Q + s;
+        if (f < ty && s < ts) cp_async4(dst, v_at[k]);
+        v_at[k] += j == TILE - 1 ? next_tile : next_sub;
       }
-      if (s >= 3 && (s & 1)) {
-        const float cand = prev[s - 2];
-        if (cand > best) {
-          best = cand;
-          m = 2;
-        }
+    } else {
+      const int f = y + RING - 1;
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) {
+        if (f < ty && cell[k] < ts)
+          cp_async4(ring + (f & (RING - 1)) * Q + cell[k], v_at[k]);
+        v_at[k] += sv_y;
       }
-      cur[s] = best + v[s * sv_s + y * sv_y];
-      moves_b[static_cast<long long>(y) * T_s + s] = m;
     }
-    __syncthreads();
-    float* t = prev;
+    cp_async_commit();
+  };
+  for (int y = TILES ? -2 * TILE : 1 - RING; y < 0; ++y) fetch(y);
+  if (cell[0] < 2) {
+    prev[cell[0] - 2] = -INFINITY;
+    cur[cell[0] - 2] = -INFINITY;
+  }
+  // Tiles: every thread's copies of frames 0..2*TILE-1 have landed, and
+  // the barrier shows them to all. Rows: this thread's frame 0.
+  cp_async_wait<TILES ? 0 : RING - 2>();
+  if (TILES) __syncthreads();
+  const float* row = ring;  // frame y's ring row
+  auto next_frame = [&](int y) {
+    fetch(y);
+    row = ring + ((y + 1) & (RING - 1)) * Q;
+    float* const t = prev;
     prev = cur;
     cur = t;
+    // Frame y + 1 has landed: rows, this thread's copy; tiles, every
+    // copy started at step y - TILE or before, shown by the barrier.
+    cp_async_wait<TILES ? TILE : RING - 2>();
+    __syncthreads();
+  };
+
+  // Frame 0: only the start states {0, 1} are live, and no move is made.
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    const int c = cell[k];
+    cur[c] = c == 0 ? row[c] + enter_cost : (c == 1 ? row[c] : max_neg_val);
+  }
+  next_frame(0);
+  for (int y = 1; y < ty; ++y) {
+    uint2* const moves = planes + static_cast<long long>(y) * W;
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) {
+      const int c = cell[k];
+      const float stay = prev[c];
+      const float adv = prev[c - 1] + cost[k];
+      const float skip = skips[k] ? prev[c - 2] : -INFINITY;
+      const bool take1 = adv > stay;
+      const float best1 = take1 ? adv : stay;
+      const bool take2 = skip > best1;
+      cur[c] = (take2 ? skip : best1) + row[c];
+      const unsigned adv_bits = __ballot_sync(~0u, take1 && !take2);
+      const unsigned skip_bits = __ballot_sync(~0u, take2);
+      if (lane == 0)
+        moves[threadIdx.x / 32 + k * warps] = make_uint2(adv_bits, skip_bits);
+    }
+    next_frame(y);
   }
 
   if (threadIdx.x != 0) return;
   // The last token unless the trailing pause is strictly better.
   int s = prev[ts - 1] > prev[ts - 2] ? ts - 1 : ts - 2;
   float* p = path + b * sp_b;
-  for (int y = ty - 1; y >= 0; --y) {
-    p[s * sp_s + y * sp_y] = 1.f;
-    s -= moves_b[static_cast<long long>(y) * T_s + s];
+  auto move = [&](uint2 m) {
+    return ((m.x >> (s & 31)) & 1u) + 2 * ((m.y >> (s & 31)) & 1u);
+  };
+  int y = ty - 1;
+  // Four frames a round: s falls by at most 2 a frame, so their moves lie
+  // in word s / 32 or the one below; both are read before the four steps.
+  for (; y >= 4; y -= 4) {
+    const int w = s >> 5;
+    uint2 hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint2* row = planes + static_cast<long long>(y - j) * W;
+      hi[j] = row[w];
+      lo[j] = row[w > 0 ? w - 1 : 0];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      p[s * sp_s + (y - j) * sp_y] = 1.f;
+      s -= move((s >> 5) == w ? hi[j] : lo[j]);
+    }
   }
+  for (; y > 0; --y) {
+    p[s * sp_s + y * sp_y] = 1.f;
+    s -= move(planes[static_cast<long long>(y) * W + (s >> 5)]);
+  }
+  p[s * sp_s] = 1.f;
 }
 
 __global__ void forward_sum_skip_alpha_kernel(
@@ -221,6 +348,48 @@ __global__ void __launch_bounds__(1024) forward_sum_skip_gamma_kernel(
       });
 }
 
+template <int C, int R, bool S, bool T>
+struct SkipPlan {
+  static constexpr int cells = C;
+  static constexpr int ring = R;
+  static constexpr bool shared = S;
+  static constexpr bool tiles = T;
+};
+
+// f(SkipPlan<cells, ring, shared, tiles>{}) for the plans of
+// ops/skip_dp_kernel.py: SKIP_VITERBI_PLANS; any other is refused.
+template <class F>
+cudaError_t with_skip_plan(int cells, int ring, bool shared, bool tiles,
+                           F f) {
+  if (cells == 1 && ring == 32 && shared && tiles)
+    return f(SkipPlan<1, 32, true, true>{});
+  if (cells == 1 && ring == 32 && !shared && tiles)
+    return f(SkipPlan<1, 32, false, true>{});
+  if (cells == 1 && ring == 8 && shared && !tiles)
+    return f(SkipPlan<1, 8, true, false>{});
+  if (cells == 1 && ring == 4 && shared && !tiles)
+    return f(SkipPlan<1, 4, true, false>{});
+  if (cells == 1 && ring == 8 && !shared && !tiles)
+    return f(SkipPlan<1, 8, false, false>{});
+  if (cells == 2 && ring == 8 && shared && !tiles)
+    return f(SkipPlan<2, 8, true, false>{});
+  if (cells == 2 && ring == 4 && shared && !tiles)
+    return f(SkipPlan<2, 4, true, false>{});
+  if (cells == 2 && ring == 8 && !shared && !tiles)
+    return f(SkipPlan<2, 8, false, false>{});
+  if (cells == 4 && ring == 8 && shared && !tiles)
+    return f(SkipPlan<4, 8, true, false>{});
+  if (cells == 4 && ring == 4 && shared && !tiles)
+    return f(SkipPlan<4, 4, true, false>{});
+  if (cells == 4 && ring == 8 && !shared && !tiles)
+    return f(SkipPlan<4, 8, false, false>{});
+  if (cells == 8 && ring == 4 && shared && !tiles)
+    return f(SkipPlan<8, 4, true, false>{});
+  if (cells == 8 && ring == 4 && !shared && !tiles)
+    return f(SkipPlan<8, 4, false, false>{});
+  return cudaErrorInvalidValue;
+}
+
 int block_threads(int T_s) {
   return T_s >= 1024 ? 1024 : ((T_s + 31) / 32) * 32;
 }
@@ -239,24 +408,31 @@ cudaError_t column_smem(Kernel kernel, int T_s, size_t* smem) {
 }  // namespace
 
 // value: f32 lattice read as [B, T_s, T_y] through element strides sv_*;
-// t_x, t_y: int32 [B]; moves: uint8 scratch [B, T_y, T_s]; path: f32,
-// zero-filled, written through strides sp_*. Returns cudaGetLastError()
-// after the launch.
+// t_x, t_y: int32 [B]; scratch: int32 [B, T_y, threads * cells / 16], the
+// move planes when they do not live in shared memory (else unused); path:
+// f32, zero-filled, written through strides sp_*; threads, cells, ring,
+// shared_planes, tiles: the wrapper's plan. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a plan that was not built.
 extern "C" int mas_skip_launch(const float* value, long long sv_b,
                                long long sv_s, long long sv_y,
-                               const int* t_x, const int* t_y,
-                               uint8_t* moves, float* path, long long sp_b,
-                               long long sp_s, long long sp_y, int B,
-                               int T_s, int T_y, float max_neg_val,
-                               float enter_cost, void* stream) {
-  size_t smem;
-  cudaError_t err = column_smem(mas_skip_kernel, T_s, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mas_skip_kernel<<<B, block_threads(T_s), smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      value, sv_b, sv_s, sv_y, t_x, t_y, moves, path, sp_b, sp_s, sp_y, T_s,
-      T_y, max_neg_val, enter_cost);
-  return static_cast<int>(cudaGetLastError());
+                               const int* t_x, const int* t_y, void* scratch,
+                               float* path, long long sp_b, long long sp_s,
+                               long long sp_y, int B, int T_s, int T_y,
+                               int threads, int cells, int ring,
+                               int shared_planes, int tiles,
+                               float max_neg_val, float enter_cost,
+                               void* stream) {
+  return static_cast<int>(with_skip_plan(
+      cells, ring, shared_planes != 0, tiles != 0, [&](auto plan) {
+        using P = decltype(plan);
+        return launch_sweep(
+            mas_skip_kernel<P::cells, P::ring, P::shared, P::tiles>, B,
+            threads, cells, T_s,
+            skip_viterbi_smem(threads * cells, P::ring, P::shared ? T_y : 0),
+            stream, value, sv_b, sv_s, sv_y, t_x, t_y,
+            static_cast<uint2*>(scratch), path, sp_b, sp_s, sp_y, T_s, T_y,
+            max_neg_val, enter_cost);
+      }));
 }
 
 // lp: f32 lattice read as [T_y, B, T_s] through element strides sl_*
@@ -291,8 +467,10 @@ extern "C" int forward_sum_skip_gamma_launch(
   return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
     using P = decltype(plan);
     return launch_sweep(forward_sum_skip_gamma_kernel<P::cells, P::ring>, B,
-                        threads, cells, T_s, ring, stream, lp, sl_y, sl_b,
-                        sl_s, alphas, sa_y, sa_b, sa_s, total, t_x, t_y,
-                        gamma, sg_y, sg_b, sg_s, T_s, T_y, enter_cost);
+                        threads, cells, T_s,
+                        sweep_smem(threads * cells, P::ring), stream, lp,
+                        sl_y, sl_b, sl_s, alphas, sa_y, sa_b, sa_s, total,
+                        t_x, t_y, gamma, sg_y, sg_b, sg_s, T_s, T_y,
+                        enter_cost);
   }));
 }

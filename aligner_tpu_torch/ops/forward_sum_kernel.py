@@ -3,7 +3,8 @@
 
 * kernel H2, the alpha sweep, counterpart of forward_sum_alpha_pallas
   (aligner_tpu/ops/forward_sum_pallas.py); plain version `alpha_plain`,
-  the port of `_alpha_scan` (aligner_tpu/ops/forward_sum.py);
+  the port of `_alpha_scan` (aligner_tpu/ops/forward_sum.py). It takes
+  the plan of the posterior sweeps (`csrc/forward_sweep.cuh`);
 * kernel H3, the beta sweep that emits the posterior gamma (the loss
   gradient up to its sign), counterpart of forward_sum_grad_pallas;
   plain version `gamma_plain`, the recursion of `_beta_scan` in the
@@ -35,7 +36,8 @@ MAX_THREADS = 1024
 
 def _sweep_plan(T: int) -> tuple[int, int, int, int]:
     """(threads, cells per thread, ring depth, shared-memory bytes) of H3
-    or H6 over a column of T cells: the fewest cells per thread with
+    or H6 over a column of T cells (H2 takes the same threads, cells and
+    ring, and holds one row a slot): the fewest cells per thread with
     which MAX_THREADS threads cover the column, then the fewest threads,
     a multiple of 32, that cover it with as many cells each. The bytes
     are the kernel's layout: two message columns and `ring` slots of an
@@ -49,6 +51,12 @@ def _sweep_plan(T: int) -> tuple[int, int, int, int]:
     raise ValueError(f"the posterior sweeps take at most "
                      f"{SWEEP_PLANS[-1][0] * MAX_THREADS} cells a column, "
                      f"got {T}")
+
+
+def _alphas_out(T_y: int, B: int, T: int, device) -> torch.Tensor:
+    """The alpha lattice's output, which H2 writes whole: an uninitialised
+    contiguous [T_y, B, T] tensor."""
+    return torch.empty((T_y, B, T), dtype=torch.float32, device=device)
 
 
 def _gamma_out(B: int, T_y: int, T: int, device) -> torch.Tensor:
@@ -109,16 +117,16 @@ def forward_sum_alpha(lp_tm: torch.Tensor, t_y):
     if lp_tm.device.type == "cpu":
         alphas = alpha_plain(lp_tm, t_y)
         return alphas, alphas[-1]
-    alphas = torch.empty((T_y, B, T_x), dtype=torch.float32,
-                         device=lp_tm.device)
+    alphas = _alphas_out(T_y, B, T_x, lp_tm.device)
     final = torch.empty((B, T_x), dtype=torch.float32, device=lp_tm.device)
+    threads, cells, ring, _ = _sweep_plan(T_x)
     t_y = t_y.contiguous()
     lib = _build.load_library()
     with torch.cuda.device(lp_tm.device):
         err = lib.forward_sum_alpha_launch(
             lp_tm.data_ptr(), *lp_tm.stride(), t_y.data_ptr(),
-            alphas.data_ptr(), final.data_ptr(), B, T_x, T_y,
-            torch.cuda.current_stream().cuda_stream)
+            alphas.data_ptr(), final.data_ptr(), B, T_x, T_y, threads, cells,
+            ring, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, KERNEL)
     _build.LAUNCHES[KERNEL] += 1
     return alphas, final

@@ -4,7 +4,11 @@ aligner_tpu/ops/skip_dp_pallas.py:
 
 * kernel H4, the pause-aware Viterbi (forward moves, start-state choice
   and walk in one launch), counterpart of mas_skip_pallas; plain version
-  `mas_skip_plain`, the port of `mas_skip_lax`;
+  `mas_skip_plain`, the port of `mas_skip_lax`. It launches with
+  `_skip_viterbi_plan`'s threads, cells per thread, ring of value rows
+  fetched ahead (in tiles of 8 frames where the lattice's frames are
+  contiguous), and the place of its move planes (shared memory where
+  they fit, else a scratch in device memory);
 * kernel H5, the skip forward-sum alpha sweep, counterpart of
   forward_sum_skip_alpha_pallas (its per-frame form); plain version
   `alpha_skip_plain`, the port of `_alpha_scan_skip`;
@@ -25,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .forward_sum_kernel import (NEG, _check_grad_inputs, _gamma_out,
-                                 _sweep_plan)
+from .forward_sum_kernel import (MAX_THREADS, NEG, _check_grad_inputs,
+                                 _gamma_out, _sweep_plan)
 from .forward_sum_kernel import _check_lattice as _check_frame_major
 from .mas_kernel import _check_lattice as _check_state_major
 from .mas_kernel import _on_cuda
@@ -35,6 +39,61 @@ from .skip_dp_reference import MAX_NEG_VAL, n_states
 KERNEL = "mas_skip_kernel"
 ALPHA_KERNEL = "forward_sum_skip_alpha_kernel"
 GAMMA_KERNEL = "forward_sum_skip_gamma_kernel"
+
+MAX_SMEM = 232448             # a block's opt-in shared memory on the H100
+# (cells per thread, ring depth, where the move planes live, how value
+# rows are fetched) of H4, the plans `with_skip_plan` in csrc/skip_dp.cu
+# builds, in order of preference. "tiles" (a ring of 32 frames; each warp
+# copies 8 frames x 4 states an instruction) serves lattices whose frames
+# are contiguous, such as serving's state-major [B, T_s, T_y]; "rows" (a
+# ring of 8 or 4 frames; each thread copies its own cell of a frame) any
+# other, such as the pause model's frame-major view. For each cell count:
+# the planes in shared memory, behind the deeper ring first, then in
+# device memory.
+SKIP_VITERBI_PLANS = (
+    (1, 32, "shared", "tiles"), (1, 32, "global", "tiles"),
+    (1, 8, "shared", "rows"), (1, 4, "shared", "rows"),
+    (1, 8, "global", "rows"),
+    (2, 8, "shared", "rows"), (2, 4, "shared", "rows"),
+    (2, 8, "global", "rows"),
+    (4, 8, "shared", "rows"), (4, 4, "shared", "rows"),
+    (4, 8, "global", "rows"),
+    (8, 4, "shared", "rows"), (8, 4, "global", "rows"))
+
+
+def _skip_viterbi_smem(pitch: int, ring: int, plane_frames: int) -> int:
+    """H4's shared-memory bytes for threads holding `pitch` cells: the
+    move planes of `plane_frames` frames (two 32-bit words per 32 cells a
+    frame), `ring` value rows of pitch + 4 floats and two columns behind
+    two pad cells each (csrc/skip_dp.cu: skip_viterbi_smem)."""
+    return 8 * (pitch // 32) * plane_frames + 4 * (ring * (pitch + 4)
+                                                   + 2 * (pitch + 2))
+
+
+def _skip_viterbi_plan(T_s: int, T_y: int, frames_contiguous: bool
+                       ) -> tuple[int, int, int, str, str, int]:
+    """(threads, cells per thread, ring depth, planes, fetch,
+    shared-memory bytes) of H4 over T_s states and T_y frames: the first
+    plan of SKIP_VITERBI_PLANS whose cells cover the column with at most
+    MAX_THREADS threads, whose fetch suits the lattice ("tiles" only where
+    its frames are contiguous) and whose layout fits a block's shared
+    memory, with the fewest threads, a multiple of 32, that cover the
+    column. planes is "shared" or "global" (an int32 scratch
+    [B, T_y, pitch / 16] in device memory). Chosen from the shape and
+    strides alone, before the launch. Raises ValueError past 8192
+    states."""
+    for cells, ring, planes, fetch in SKIP_VITERBI_PLANS:
+        if cells * MAX_THREADS < T_s or (fetch == "tiles"
+                                         and not frames_contiguous):
+            continue
+        threads = 32 * -(-T_s // (32 * cells))
+        smem = _skip_viterbi_smem(threads * cells, ring,
+                                  T_y if planes == "shared" else 0)
+        if smem <= MAX_SMEM:
+            return threads, cells, ring, planes, fetch, smem
+    raise ValueError(f"the skip Viterbi takes at most "
+                     f"{SKIP_VITERBI_PLANS[-1][0] * MAX_THREADS} states, "
+                     f"got {T_s}")
 
 
 def _shift_right(col: torch.Tensor, n: int, fill: float) -> torch.Tensor:
@@ -133,14 +192,20 @@ def mas_skip_path(value: torch.Tensor, t_x, t_y, *,
     if out.numel() == 0:
         return out
     path = out.transpose(1, 2) if frame_major else out
-    moves = torch.empty((B, T_y, T_s), dtype=torch.uint8, device=value.device)
+    threads, cells, ring, planes, fetch, _ = _skip_viterbi_plan(
+        T_s, T_y, frames_contiguous=value.stride(2) == 1)
+    scratch = torch.empty(
+        (B, T_y, threads * cells // 16) if planes == "global" else (0,),
+        dtype=torch.int32, device=value.device)
     lib = _build.load_library()
     with torch.cuda.device(value.device):
         err = lib.mas_skip_launch(
             value.data_ptr(), *value.stride(), t_x.data_ptr(),
-            t_y.data_ptr(), moves.data_ptr(), path.data_ptr(),
-            *path.stride(), B, T_s, T_y, float(max_neg_val),
-            float(enter_cost), torch.cuda.current_stream().cuda_stream)
+            t_y.data_ptr(), scratch.data_ptr(), path.data_ptr(),
+            *path.stride(), B, T_s, T_y, threads, cells, ring,
+            int(planes == "shared"), int(fetch == "tiles"),
+            float(max_neg_val), float(enter_cost),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, KERNEL)
     _build.LAUNCHES[KERNEL] += 1
     return out

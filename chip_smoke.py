@@ -18,16 +18,21 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
   1. the card (nvidia-smi name and power limit)
   2. kernel build
   3. H1 (MAS) against mas_plain and the numpy oracle, bit-identical
-  4. H2 (forward-sum alpha) against alpha_plain, rtol 1e-5
+  4. H2 (forward-sum alpha) against alpha_plain, rtol 1e-5, over the
+     whole lattice (frozen frames included) written over NaN, with edge
+     items, a strided column and T_x = 1100
   5. serving path: maximum_path, OTA forward, BatchAligner; launch counts
   6. the serving path's results against the plain route
   7. CUDA-event times of each kernel against its plain version, beside
      the least time the card could take for the same bytes, operations
      and special-function results (H7's and H9's cluster plan beside them);
-     for H2, H3, H5 and H6 also the time per frame of the longest item,
-     and H3 again at config 5's shape and at the profiled training
-     step's; for H12 also the one library call that computes its function
-     (`torch.eq` into a float32 output), which the package never calls
+     for H2-H6 also the time per frame of the longest item, H3 again at
+     config 5's shape and at the profiled training step's, H4 with its
+     move planes forced into device memory and at the profiled pause
+     step's lattice in both layouts; for H12 also the one library call
+     that computes its function (`torch.eq` into a float32 output), which
+     the package never calls, by CUDA events and by the profiler's device
+     time of the kernel alone, at B=32 and B=256
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
      atol 1e-6, into an output pre-filled with NaN, and the loss gradient
      on the card against the plain one
@@ -37,7 +42,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      torch.profiler breakdown of the B=16 step
  10. `python -m aligner_tpu_torch demo-ota --device cuda` as a subprocess
  11. H4 (skip-state Viterbi) against mas_skip_plain and the numpy oracle,
-     bit-identical, with edge items, two enter costs and T_s > 1024
+     bit-identical, with edge items, two enter costs and T_s > 1024, its
+     move planes in shared memory and in device memory, both layouts
  12. H5 (skip forward-sum alpha) against alpha_skip_plain and H6 (skip
      beta/posterior) against gamma_skip_plain, rtol 1e-5 / atol 1e-6, with
      and without an enter cost, H6 into an output pre-filled with NaN,
@@ -414,26 +420,62 @@ def fs_grad_inputs(seed, dev, **shape):
     return lp_tm, alphas, total, tx, ty
 
 
+@contextlib.contextmanager
+def alphas_prefilled_with_nan():
+    """While active, H2 writes into an output pre-filled with NaN
+    (allocated uninitialised otherwise), so a cell it leaves unwritten
+    shows."""
+    from aligner_tpu_torch.ops import forward_sum_kernel as fs
+    alphas_out = fs._alphas_out
+
+    def prefilled(*args):
+        return alphas_out(*args).fill_(float("nan"))
+
+    with patched_attrs([(fs, "_alphas_out", prefilled)]):
+        yield
+
+
 def phase_forward_sum(dev):
-    from aligner_tpu_torch.ops.forward_sum import _total_from_alphas
+    """H2's whole alpha lattice, frozen frames included, and its final
+    column against alpha_plain, into an output pre-filled with NaN: the
+    phase-7 batch; edge items (t_y = 0, t_y = 1, t_y = T_y, t_x = 1); a
+    lattice read with a strided column; T_x = 1100 (two cells a thread).
+    Returns the max abs error over the lattices."""
     from aligner_tpu_torch.ops.forward_sum_kernel import (alpha_plain,
                                                           forward_sum_alpha)
     lp_tm, tx, ty = fs_inputs(3, dev)
-    alphas, final = forward_sum_alpha(lp_tm, ty)
-    want = alpha_plain(lp_tm, ty)
-    got_total = _total_from_alphas(final, tx)
-    want_total = _total_from_alphas(want[-1], tx)
-    torch.cuda.synchronize()
-    if not torch.allclose(got_total, want_total, rtol=FS_RTOL, atol=0):
-        raise AssertionError(f"H2 final log-mass: {got_total} vs "
-                             f"{want_total}")
-    if not torch.equal(final, alphas[-1]):
-        raise AssertionError("H2: final column is not the last alpha row")
-    err = (got_total - want_total).abs().max().item()
-    log(4, f"H2 B={B_OTA} {T_X}x{T_Y}: final log-mass within rtol "
-           f"{FS_RTOL} of alpha_plain (max abs err {err:.3g} on totals "
-           f"near {want_total.mean().item():.1f})")
-    return err
+    t_x, t_y = tx.cpu().numpy(), ty.cpu().numpy()
+    t_x[:4], t_y[:4] = [1, T_X // 2, T_X, 1], [0, 1, T_Y, T_Y // 3]
+    edge = fs_inputs(3, dev, t_x=t_x, t_y=t_y)
+    wide_t_y = np.array([1200, 700], np.int32)
+    cases = {"ragged": (lp_tm, ty),
+             "edge items": edge[::2],
+             "strided column": (lp_tm.permute(1, 2, 0).contiguous()
+                                .permute(2, 0, 1), ty),
+             "T_x=1100": fs_inputs(5, dev, B=2, T_x=1100, T_y=1200,
+                                   t_x=np.array([1100, 600], np.int32),
+                                   t_y=wide_t_y)[::2]}
+    max_err = 0.0
+    with alphas_prefilled_with_nan():
+        for what, (lp, t) in cases.items():
+            alphas, final = forward_sum_alpha(lp, t)
+            want = alpha_plain(lp, t)
+            torch.cuda.synchronize()
+            if not torch.allclose(alphas, want, rtol=FS_RTOL, atol=0):
+                bad = ~torch.isclose(alphas, want, rtol=FS_RTOL, atol=0)
+                raise AssertionError(f"H2 {what}: {int(bad.sum())} cells off "
+                                     f"alpha_plain, first at "
+                                     f"{bad.nonzero()[:4].tolist()}")
+            if not torch.equal(final, alphas[-1]):
+                raise AssertionError(f"H2 {what}: final column is not the "
+                                     f"last alpha row")
+            max_err = max(max_err, (alphas - want).abs().max().item())
+    log(4, f"H2: whole alpha lattice (frozen frames included) within rtol "
+           f"{FS_RTOL} of alpha_plain, written over NaN, final column equal "
+           f"to the last row, for B={B_OTA} {T_X}x{T_Y} ragged, its edge "
+           f"items (t_y = 0, 1, {T_Y}; t_x = 1), a strided column and B=2 "
+           f"1100x1200 (two cells a thread); max abs error {max_err:.3g}")
+    return max_err
 
 
 def ota_inputs(dev):
@@ -678,6 +720,7 @@ def phase_times(dev):
     # the sweeps over frames: the longest item's frames, which set the chain
     frames = {"forward_sum_alpha_kernel": int(fty.max()),
               "forward_sum_grad_kernel": int(gty.max()),
+              "mas_skip_kernel": int(sty.max()),
               "forward_sum_skip_alpha_kernel": int(sgty.max()),
               "forward_sum_skip_gamma_kernel": int(sgty.max())}
     times = {}
@@ -699,6 +742,7 @@ def phase_times(dev):
                   f"longest item's {frames[name]}" if name in frames
                   else ""))
     posterior_times(dev)
+    skip_viterbi_times(dev)
     for B, D in ((64, D_MOBO), (B_SERVE, D_MOBO), (B_OTA, 1)):
         # H7 and H9 at a smaller cluster, at one block per item (B > the
         # card's SMs), and with D = 1, where a token step is the chain's
@@ -716,6 +760,7 @@ def phase_times(dev):
         log(7, f"{what} B={B_MAS} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
                f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}")
     serving_times(dev)
+    expand_device_times(dev)
     durs_ms = cuda_ms(lambda: mk.mas_durations(v, tx, ty), 20)
     durs_plain = cuda_ms(
         lambda: mk.mas_plain(v, tx, ty).sum(-1).to(torch.int32), 2)
@@ -754,6 +799,119 @@ def posterior_times(dev):
         log(7, f"forward_sum_grad_kernel at {what}'s shape, B={B} "
                f"{T_x}x{T_y}: {ms:.4f} ms; {ms * 1e6 / int(ty.max()):.1f} "
                f"ns a frame over the longest item's {int(ty.max())}")
+
+
+def skip_viterbi_times(dev):
+    """H4 on phase 7's lattice with its move planes forced into device
+    memory (the form of lattices whose planes do not fit in shared
+    memory), and at the profiled pause train step's lattice (phase 13's
+    first batch: its lengths, random values) read frame-major, as the
+    pause model reads it, beside the same values state-major; with the
+    time per frame of the longest item."""
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
+    sv, stx, sty = (torch.from_numpy(a).to(dev)
+                    for a in skip_viterbi_inputs())
+    frames = int(sty.max())
+    with skip_planes_in_device_memory():
+        ms = cuda_ms(lambda: sk.mas_skip_path(sv, stx, sty), 20)
+    log(7, f"mas_skip_kernel, planes in device memory (forced) at B={B_OTA} "
+           f"{2 * T_X + 1} states x {T_Y}: {ms:.4f} ms; "
+           f"{ms * 1e6 / frames:.1f} ns a frame over the longest item's "
+           f"{frames}")
+    batch = pause_batches()[0]
+    B, T_x = batch["tokens"].shape
+    T_y, T_s = batch["mel"].shape[1], 2 * batch["tokens"].shape[1] + 1
+    tx, ty = (torch.as_tensor(np.asarray(batch[k], np.int32)).to(dev)
+              for k in ("text_lengths", "mel_lengths"))
+    rng = np.random.default_rng(15)
+    fm = torch.from_numpy((rng.standard_normal((B, T_y, T_s)) * 3)
+                          .astype(np.float32)).to(dev)
+    sm = fm.transpose(1, 2).contiguous()
+    require_equal("H4 frame-major vs state-major",
+                  sk.mas_skip_path(fm.transpose(1, 2), tx, ty,
+                                   frame_major=True),
+                  sk.mas_skip_path(sm, tx, ty).transpose(1, 2))
+    for layout, frames_contiguous, run in (
+            ("frame-major (the pause model's)", False,
+             lambda: sk.mas_skip_path(fm.transpose(1, 2), tx, ty,
+                                      frame_major=True)),
+            ("state-major (serving's)", True,
+             lambda: sk.mas_skip_path(sm, tx, ty))):
+        ms = cuda_ms(run, 20)
+        log(7, f"mas_skip_kernel at the profiled pause step's lattice, B={B} "
+               f"{T_s} states x {T_y}, {layout}: {ms:.4f} ms; "
+               f"{ms * 1e6 / int(ty.max()):.1f} ns a frame over the longest "
+               f"item's {int(ty.max())}; plan (threads, cells, ring, planes, "
+               f"fetch, shared bytes) "
+               f"{sk._skip_viterbi_plan(T_s, T_y, frames_contiguous)}")
+
+
+@contextlib.contextmanager
+def skip_planes_in_device_memory():
+    """While active, H4 keeps its move planes in device memory whatever
+    the shape: its plan's threads, cells and fetch, with the ring of the
+    device-memory plan for them."""
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
+    plan = sk._skip_viterbi_plan
+
+    def device_memory_plan(T_s, T_y, frames_contiguous):
+        threads, cells, _, _, fetch, _ = plan(T_s, T_y, frames_contiguous)
+        ring = next(r for c, r, planes, f in sk.SKIP_VITERBI_PLANS
+                    if (c, planes, f) == (cells, "global", fetch))
+        return (threads, cells, ring, "global", fetch,
+                sk._skip_viterbi_smem(threads * cells, ring, 0))
+
+    with patched_attrs([(sk, "_skip_viterbi_plan", device_memory_plan)]):
+        yield
+
+
+def device_ms(fn, reps, kernel=None):
+    """(ms a call, kernel names) by torch.profiler: the device time of the
+    kernels fn launches (of those whose name holds `kernel`, if given),
+    summed over reps calls after one warm-up call, per call. Unlike CUDA
+    events around the call, it leaves out the host's launch work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and (kernel is None or kernel in e.key)]
+    if not events:
+        raise AssertionError(f"the profiler saw no kernel of {fn}")
+    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            [e.key[:60] for e in events])
+
+
+def expand_device_times(dev):
+    """H12 against its one library call (`torch.eq` into a float32
+    output) at B=32 and B=256, 128x1024, by the profiler's device time of
+    the kernel alone, beside CUDA events around each call."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    for B in (B_MAS, B_SERVE):
+        value, t_x, t_y = ragged(0, B, T_X, T_Y)
+        v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+        idx = mk.mas_walk_idx(mk.mas_bits(v, tx, ty), tx, ty)
+        tokens = torch.arange(1, T_X + 1, dtype=torch.int32,
+                              device=dev)[None, :, None]
+        out = torch.empty((B, T_X, T_Y), dtype=torch.float32, device=dev)
+        runs = {"H12": (lambda: mk.mas_expand(idx, T_X), "mas_expand_kernel"),
+                "torch.eq": (lambda: torch.eq(tokens, idx[:, None, :],
+                                              out=out), None)}
+        require_equal(f"torch.eq into float32 vs H12, B={B}", runs["H12"][0](),
+                      runs["torch.eq"][0]())
+        line = []
+        for name, (run, kernel) in runs.items():
+            ms, keys = device_ms(run, 50, kernel)
+            line.append(f"{name} {ms:.4f} ms of device time (kernels "
+                        f"{keys}), {cuda_ms(run, 50):.4f} ms by events")
+        log(7, f"mas_expand_kernel against its library call, B={B} "
+               f"{T_X}x{T_Y}: " + "; ".join(line))
 
 
 # Kernels whose byte bound says nothing: one thread follows a chain of
@@ -1236,27 +1394,45 @@ def skip_viterbi_inputs():
 
 
 def phase_skip_mas(dev):
-    """H4 against mas_skip_plain on the card and the numpy oracle; returns
-    the max abs difference from the oracle (0 or the phase fails)."""
+    """H4 against mas_skip_plain on the card and the numpy oracle, with its
+    move planes in shared memory (the 257 x 1024 batch, as planned) and in
+    device memory (the same batch forced; the 1041 x 1200 wide case, as
+    planned), both layouts each; returns the max abs difference from the
+    oracle (0 or the phase fails)."""
     from aligner_tpu_torch.ops.skip_dp import mas_skip_path_frame_major
-    from aligner_tpu_torch.ops.skip_dp_kernel import (mas_skip_path,
+    from aligner_tpu_torch.ops.skip_dp_kernel import (_skip_viterbi_plan,
+                                                      mas_skip_path,
                                                       mas_skip_plain)
     from aligner_tpu_torch.ops.skip_dp_reference import mas_skip_single
     value, t_x, t_y = skip_viterbi_inputs()
     v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
     v_fm = v.transpose(1, 2).contiguous()
+    T_s = 2 * T_X + 1
+    plans = {layout: _skip_viterbi_plan(T_s, T_Y, layout == "state-major")
+             for layout in ("state-major", "frame-major")}
+    if [p[3:5] for p in plans.values()] != [("shared", "tiles"),
+                                            ("shared", "rows")]:
+        raise AssertionError(f"H4 at {T_s} x {T_Y}: plans {plans}")
     max_err = 0.0
     for cost in ENTER_COSTS:
+        want = mas_skip_plain(v, tx, ty, enter_cost=cost)
         path = mas_skip_path(v, tx, ty, enter_cost=cost)
         torch.cuda.synchronize()
-        require_equal(f"H4 cost {cost} vs mas_skip_plain", path,
-                      mas_skip_plain(v, tx, ty, enter_cost=cost))
+        require_equal(f"H4 cost {cost} vs mas_skip_plain", path, want)
         if path[2:4].any():
             raise AssertionError("H4: invalid items must get zero paths")
         require_equal(f"H4 cost {cost} from a frame-major lattice",
                       mas_skip_path_frame_major(v_fm, tx, ty,
                                                 enter_cost=cost),
-                      path.transpose(1, 2))
+                      want.transpose(1, 2))
+        with skip_planes_in_device_memory():
+            require_equal(f"H4 cost {cost}, planes in device memory",
+                          mas_skip_path(v, tx, ty, enter_cost=cost), want)
+            require_equal(f"H4 cost {cost}, planes in device memory, from a "
+                          f"frame-major lattice",
+                          mas_skip_path_frame_major(v_fm, tx, ty,
+                                                    enter_cost=cost),
+                          want.transpose(1, 2))
         got = path.cpu().numpy().astype(np.int32)
         for i in (0, 1, 4, 5):
             oracle = mas_skip_single(value[i], int(t_x[i]), int(t_y[i]),
@@ -1264,24 +1440,36 @@ def phase_skip_mas(dev):
             max_err = max(max_err, float(np.abs(got[i] - oracle).max()))
             if not np.array_equal(got[i], oracle):
                 raise AssertionError(f"H4 cost {cost} item {i} vs oracle")
-        log(11, f"H4 enter_cost {cost}: B={B_OTA} {2 * T_X + 1} states x "
-                f"{T_Y} bit-identical to mas_skip_plain in both layouts, "
+        log(11, f"H4 enter_cost {cost}: B={B_OTA} {T_s} states x {T_Y}, "
+                f"planes in shared memory as planned and in device memory "
+                f"(forced), state-major (tiles) and frame-major (rows), "
+                f"bit-identical to mas_skip_plain in both layouts, "
                 f"items 0, 1, 4, 5 (t_x = 1, t_x = t_y, ties, t_x = {T_X}) "
-                f"to the numpy oracle; invalid items all zero")
+                f"to the numpy oracle; invalid items (t_x > t_y, t_x = 0) "
+                f"all zero")
     rng = np.random.default_rng(11)
     T_s = 2 * T_X_WIDE + 1
     wide = torch.from_numpy(rng.standard_normal(
         (2, T_s, 1200)).astype(np.float32)).to(dev)
     wtx = torch.tensor([T_X_WIDE, 300], dtype=torch.int32, device=dev)
     wty = torch.tensor([1200, 700], dtype=torch.int32, device=dev)
+    plan = _skip_viterbi_plan(T_s, 1200, True)
+    if plan[3:5] != ("global", "rows"):
+        raise AssertionError(f"H4 at {T_s} x 1200: plan {plan}")
+    want = mas_skip_plain(wide, wtx, wty, enter_cost=-1.2)
     require_equal("H4 wide", mas_skip_path(wide, wtx, wty, enter_cost=-1.2),
-                  mas_skip_plain(wide, wtx, wty, enter_cost=-1.2))
+                  want)
+    require_equal("H4 wide from a frame-major lattice",
+                  mas_skip_path_frame_major(
+                      wide.transpose(1, 2).contiguous(), wtx, wty,
+                      enter_cost=-1.2), want.transpose(1, 2))
     wtx[1] = T_X_WIDE + 1        # more states than the lattice has
     if mas_skip_path(wide, wtx, wty)[1].any():
         raise AssertionError("H4: an oversize item must get a zero path")
-    log(11, f"H4 wide B=2 {T_s} states x 1200 (threads stride): "
-            f"bit-identical to mas_skip_plain; an item with 2*t_x+1 > T_s "
-            f"gets a zero path")
+    log(11, f"H4 wide B=2 {T_s} states x 1200 (two cells a thread, plan "
+            f"(threads, cells, ring, planes, fetch, shared bytes) {plan}): "
+            f"bit-identical to mas_skip_plain in both layouts; an item "
+            f"with 2*t_x+1 > T_s gets a zero path")
     return max_err
 
 

@@ -336,22 +336,49 @@ def test_cuda_two_pass_path_never_runs_plain(cuda, monkeypatch):
         "mas_bits_chains_kernel": 2, "mas_walk_chains_kernel": 2}
 
 
+@pytest.fixture
+def alphas_prefilled_with_nan(monkeypatch):
+    """H2 writes into an output pre-filled with NaN, so a cell it leaves
+    unwritten shows."""
+    alphas_out = forward_sum_kernel._alphas_out
+
+    def prefilled(*args):
+        return alphas_out(*args).fill_(float("nan"))
+
+    monkeypatch.setattr(forward_sum_kernel, "_alphas_out", prefilled)
+
+
+# Alpha sweeps: ragged batches (item 0 at t_y = 1); every item at
+# t_y = T_y ("full"); T_y = 1; T_x = 1100 (two cells a thread); lp read
+# with a strided column ("state").
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,B,T_x,T_y", [(3, 6, 16, 70), (4, 3, 128, 512)])
-def test_alpha_kernel_matches_plain(cuda, seed, B, T_x, T_y):
-    """Alpha lattice within rtol 1e-5 of the plain sweep (both follow
-    jnp.logaddexp's formula in float32; the exp/log libraries differ)."""
+@pytest.mark.parametrize("seed,B,T_x,T_y,layout", [
+    (3, 6, 16, 70, "ragged"), (4, 3, 128, 512, "ragged"),
+    (5, 4, 24, 37, "full"), (6, 4, 9, 1, "ragged"),
+    (7, 2, 1100, 1300, "ragged"), (8, 5, 40, 61, "state")])
+def test_alpha_kernel_matches_plain(cuda, alphas_prefilled_with_nan, seed, B,
+                                    T_x, T_y, layout):
+    """The whole alpha lattice, frozen frames included, within rtol 1e-5
+    of the plain sweep (both follow jnp.logaddexp's formula in float32;
+    the exp/log libraries differ), every cell written over NaN, and the
+    final column equal to the last row."""
     rng = np.random.default_rng(seed)
     lp = torch.log_softmax(torch.from_numpy(
         rng.standard_normal((B, T_y, T_x)).astype(np.float32)), -1).to(cuda)
     t_x = torch.from_numpy(rng.integers(1, T_x + 1, B)).to(cuda)
     t_y = torch.maximum(t_x, torch.from_numpy(
         rng.integers(1, T_y + 1, B)).to(cuda))
+    t_y[0] = 1
+    if layout == "full":
+        t_y[:] = T_y
     lp_tm = _masked_logp(lp, t_x).transpose(0, 1)
+    if layout == "state":
+        lp_tm = x_strided(lp_tm)
     alphas, final = forward_sum_kernel.forward_sum_alpha(lp_tm, t_y)
     want = forward_sum_kernel.alpha_plain(lp_tm, t_y)
     torch.testing.assert_close(alphas, want, rtol=1e-5, atol=0)
     torch.testing.assert_close(final, want[-1], rtol=1e-5, atol=0)
+    assert torch.equal(final, alphas[-1])
 
 
 @pytest.fixture
@@ -418,14 +445,56 @@ def test_grad_kernel_matches_plain(cuda, gamma_prefilled_with_nan, seed, B,
     assert not gamma[~live].any()
 
 
+@pytest.fixture
+def skip_planes(monkeypatch):
+    """planes(where) makes H4 keep its move planes in device memory
+    ("global") whatever the shape, with its plan's threads, cells and
+    fetch and the device-memory ring for them; "shared" keeps the plan."""
+    plan = skip_dp_kernel._skip_viterbi_plan
+
+    def force(where):
+        if where == "shared":
+            return
+
+        def device_memory_plan(T_s, T_y, frames_contiguous):
+            threads, cells, _, _, fetch, _ = plan(T_s, T_y,
+                                                  frames_contiguous)
+            ring = next(r for c, r, p, f in skip_dp_kernel.SKIP_VITERBI_PLANS
+                        if (c, p, f) == (cells, "global", fetch))
+            return (threads, cells, ring, "global", fetch,
+                    skip_dp_kernel._skip_viterbi_smem(threads * cells, ring,
+                                                      0))
+
+        monkeypatch.setattr(skip_dp_kernel, "_skip_viterbi_plan",
+                            device_memory_plan)
+
+    return force
+
+
+# Skip Viterbi: each shape with the move planes in shared memory, as
+# planned, and in device memory, its values read state-major (frames
+# contiguous: tiles of 8 frames, up to 1024 states) and frame-major (rows);
+# T_y = 5 below a tile and the ring depth; 1041 states x 700 frames (two
+# cells a thread, shared planes behind the shallow ring) and x 1200
+# (planes in device memory, as planned).
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,B,T_x,T_y,cost", [(10, 8, 12, 61, 0.0),
-                                                 (11, 6, 128, 300, -1.2),
-                                                 (12, 2, 520, 700, 0.6)])
-def test_mas_skip_kernel_matches_plain(cuda, seed, B, T_x, T_y, cost):
+@pytest.mark.parametrize("seed,B,T_x,T_y,cost,planes", [
+    (10, 8, 12, 61, 0.0, "shared"), (10, 8, 12, 61, 0.0, "global"),
+    (11, 6, 128, 300, -1.2, "shared"), (11, 6, 128, 300, -1.2, "global"),
+    (12, 2, 520, 700, 0.6, "shared"), (27, 2, 520, 1200, -0.4, "global"),
+    (28, 6, 3, 5, 0.3, "shared"), (28, 6, 3, 5, 0.3, "global")])
+def test_mas_skip_kernel_matches_plain(cuda, skip_planes, seed, B, T_x, T_y,
+                                       cost, planes):
     """Bit-identical paths in both layouts and from a frame-major
-    lattice read in place; the last case strides threads over
-    T_s = 1041 > 1024."""
+    lattice read in place, with the move planes in shared or device
+    memory; T_s = 1041 > 1024 takes two cells a thread."""
+    skip_planes(planes)
+    for frames_contiguous in (True, False):
+        plan = skip_dp_kernel._skip_viterbi_plan(2 * T_x + 1, T_y,
+                                                 frames_contiguous)
+        assert plan[3] == planes
+        assert plan[4] == ("tiles" if frames_contiguous and T_x < 512
+                           else "rows")
     value, t_x, t_y = skip_ragged(seed, B, T_x, T_y)
     v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
     path = skip_dp_kernel.mas_skip_path(v, tx, ty, enter_cost=cost)

@@ -41,7 +41,8 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 _SIGNATURES = {
     "mas_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _I64,
-                   _P, _I32, _I32, _I32, _F32, _P],
+                   _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                   _F32, _P],
     "forward_sum_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
                                  _I32, _I32, _I32, _I32, _I32, _P],
     "forward_sum_grad_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
@@ -51,7 +52,8 @@ _SIGNATURES = {
                         _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                         _I32, _F32, _F32, _P],
     "forward_sum_skip_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32,
-                                      _I32, _I32, _F32, _P],
+                                      _I32, _I32, _I32, _I32, _I32, _F32,
+                                      _P],
     "forward_sum_skip_gamma_launch": [_P, _I64, _I64, _I64, _P, _I64, _I64,
                                       _I64, _P, _P, _P, _P, _I64, _I64, _I64,
                                       _I32, _I32, _I32, _I32, _I32, _I32,

@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(1024) forward_sum_alpha_kernel(
                              static_cast<long long>(B) * T_x,
                              1,
                              final_col + static_cast<long long>(b) * T_x};
-  forward_sweep<CELLS, RING>(
+  forward_sweep<CELLS, RING, 1>(
       item, T_x, T_y, t_y[b], [](int x) { return x == 0 ? 0.f : NEG; },
       [](const float* prev, int x) { return logaddexp(prev[x], prev[x - 1]); });
 }
@@ -106,7 +106,7 @@ extern "C" int forward_sum_alpha_launch(const float* lp, long long sl_y,
     using P = decltype(plan);
     return launch_sweep(forward_sum_alpha_kernel<P::cells, P::ring>, B,
                         threads, cells, T_x,
-                        forward_smem(threads * cells, P::ring), stream, lp,
+                        forward_smem(threads * cells, P::ring, 1), stream, lp,
                         sl_y, sl_b, sl_x, t_y, alphas, final_col, B, T_x,
                         T_y);
   }));

@@ -1,5 +1,6 @@
-// The forward alpha sweep of H2 (csrc/forward_sum.cu): one block per item
-// walks the item's live frames y = 0..t_y - 1 over
+// The forward alpha sweep of H2 (csrc/forward_sum.cu) and H5
+// (csrc/skip_dp.cu): one block per item walks the item's live frames
+// y = 0..t_y - 1 over
 //
 //   alpha[0, c] = lp[0, c] + first(c)
 //   alpha[y, c] = lp[y, c] + arms(alpha[y - 1], c)
@@ -21,21 +22,22 @@
 // * A frame step of one basic block: the neighbours from the shared
 //   column, the arms, the add of lp, a shared store, the alpha row's store
 //   (__stwb) and one barrier (the columns are double-buffered). Frame 0 is
-//   peeled; the columns carry a cell of NEG on the left, so the arms
-//   read cell c - 1 without an `if`; columns and ring rows are
-//   padded to threads x CELLS cells, and cells c >= T run the chain on
-//   what their shared memory holds, touching no device memory. Copies past
+//   peeled; the columns carry PAD cells of NEG on the left (one for H2,
+//   two for H5), so the arms read c - 1 and c - 2 without an `if`;
+//   columns and ring rows are padded to threads x CELLS cells, and cells
+//   c >= T run the chain on what their shared memory holds, touching no
+//   device memory. Copies past
 //   the last live frame are predicated off, not branched around.
 // * Only live frames on the chain. After frame t_y - 1 each thread writes
 //   its own cells of the frozen column to frames t_y..T_y - 1 and to the
 //   final column, with no barrier.
 // * CELLS cells per thread, c = threadIdx.x + k * blockDim.x, with the
-//   threads, CELLS and RING of the wrapper's plan: H2 takes the posterior
-//   sweeps' `_sweep_plan` (ops/forward_sum_kernel.py) and `with_plan`, and
-//   holds one row a slot where they hold two.
+//   threads, CELLS and RING of the wrapper's plan: H2 and H5 take the
+//   posterior sweeps' `_sweep_plan` (ops/forward_sum_kernel.py) and
+//   `with_plan`, and hold one row a slot where they hold two.
 //
 // Per cell the operations and their order are those of the plain version
-// (alpha_plain) and the Pallas body: lp + logaddexp(...), in precise
+// (alpha_plain, alpha_skip_plain) and the Pallas bodies: lp + logaddexp(...), in precise
 // expf/log1pf (no --use_fast_math).
 #pragma once
 #include <cuda_runtime.h>
@@ -44,8 +46,6 @@
 #include "posterior_sweep.cuh"
 
 namespace {
-
-constexpr int PAD = 1;  // NEG cells left of each column: c - 1
 
 // One item's forward lattices, [T_y, T] through element strides: lp (read)
 // and alpha (written), and its final column [T].
@@ -58,16 +58,17 @@ struct ForwardLattices {
 };
 
 // Shared memory of a forward sweep whose threads hold `pitch` cells: RING
-// lp rows and two padded columns.
-inline size_t forward_smem(int pitch, int ring) {
-  return (static_cast<size_t>(ring) * pitch + 2 * (pitch + PAD)) *
+// lp rows and two columns behind `pad` cells of NEG each.
+inline size_t forward_smem(int pitch, int ring, int pad) {
+  return (static_cast<size_t>(ring) * pitch + 2 * (pitch + pad)) *
          sizeof(float);
 }
 
 // The sweep of one item (see above). first_at(c) is frame 0's term at
 // cell c; arms_at(prev, c) the recursion's term from the column
-// prev = alpha[y - 1], whose cell -1 holds NEG.
-template <int CELLS, int RING, class First, class Arms>
+// prev = alpha[y - 1], whose cells -PAD..-1 hold NEG (PAD: how far left
+// the arms read, 1 for H2's c - 1, 2 for H5's c - 2).
+template <int CELLS, int RING, int PAD, class First, class Arms>
 __device__ __forceinline__ void forward_sweep(const ForwardLattices& item,
                                               int T, int T_y, int ty,
                                               First first_at, Arms arms_at) {

@@ -47,14 +47,14 @@
 // 128x1024; each figure is the range over three runs of the script, at
 // B=32 and then at B=256:
 //   staged walk               0.174-0.180    0.410-0.417 ms
-//   fused kernel's walk alone 0.195-0.202    0.445-0.458 ms (with zero fill)
 //   index walk                0.155-0.163    0.163-0.172 ms
 //   expand                    0.029-0.036    0.050-0.053 ms
-//   forward, 1 chain          0.195-0.196    0.260-0.261 ms
 //   forward, 2 chains         0.261-0.265    0.359-0.364 ms
 //   forward, 4 chains         0.380-0.387    0.426-0.432 ms
 //   walk, 2 chains            0.167-0.174    0.421-0.427 ms
 //   walk, 4 chains            0.165-0.172    0.420-0.426 ms
+// H1's own halves (csrc/mas.cu, its bits in a shared-memory plane) are
+// faster than each of these; PERF.md has their times.
 // The expand kernel at B=32 reads the host's launch overhead, not the card
 // (one `torch.eq` into a float32 output takes 0.022 ms there), and moves
 // 2.6 TB/s at B=256, where that call takes 0.136 ms. So K items per block

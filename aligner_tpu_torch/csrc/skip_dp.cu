@@ -32,6 +32,9 @@
 //   p1 = alpha[y-1,s-1] (+ enter_cost on even s), NEG at s == 0
 //   p2 = alpha[y-1,s-2] on odd s >= 3, else NEG
 //   frames y >= t_y freeze the carry.
+// It is the forward sweep of csrc/forward_sweep.cuh with these arms, two
+// pad cells of NEG left of the column (both arms are selects) and the
+// plan of the posterior sweeps.
 //
 // H6, forward_sum_skip_gamma_kernel, replaces _gamma_skip_kernel via
 // forward_sum_skip_gamma_pallas: a reverse sweep over the message
@@ -89,13 +92,14 @@
 //   on what shared memory holds; no state reads a higher one).
 // * Only the item's frames: the chain stops at t_y, and invalid items
 //   return before it.
-// H5 still loads lp after its barrier; H6 is the sweep of
-// csrc/posterior_sweep.cuh (two nested logaddexp where H3 has one), which
-// says how its design keeps the loads, the posterior and the padded frames
-// off the chain.
+// H5 is the sweep of csrc/forward_sweep.cuh (two nested logaddexp where H2
+// has one) and H6 that of csrc/posterior_sweep.cuh (likewise against H3);
+// each header says how its design keeps the loads (lp rows fetched ahead),
+// the posterior and the frames past t_y off the chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "forward_sweep.cuh"
 #include "posterior_sweep.cuh"
 
 namespace {
@@ -269,50 +273,31 @@ __global__ void __launch_bounds__(1024) mas_skip_kernel(
   p[s * sp_s] = 1.f;
 }
 
-__global__ void forward_sum_skip_alpha_kernel(
+template <int CELLS, int RING>
+__global__ void __launch_bounds__(1024) forward_sum_skip_alpha_kernel(
     const float* __restrict__ lp, long long sl_y, long long sl_b,
     long long sl_s, const int* __restrict__ t_y, float* __restrict__ alphas,
     float* __restrict__ final_col, int B, int T_s, int T_y,
     float enter_cost) {
-  extern __shared__ float cols[];  // two alpha columns of T_s floats
   const int b = blockIdx.x;
-  const int ty = t_y[b];
-  const float* l = lp + b * sl_b;
-  float* prev = cols;
-  float* cur = cols + T_s;
-
-  for (int s = threadIdx.x; s < T_s; s += blockDim.x) prev[s] = NEG;
-  __syncthreads();
-
-  for (int y = 0; y < T_y; ++y) {
-    float* out = alphas + (static_cast<long long>(y) * B + b) * T_s;
-    for (int s = threadIdx.x; s < T_s; s += blockDim.x) {
-      float a;
-      if (y >= ty) {
-        a = prev[s];
-      } else if (y == 0) {
-        a = l[s * sl_s] + (s == 0 ? enter_cost : (s == 1 ? 0.f : NEG));
-      } else {
-        float p1 = NEG;
-        float p2 = NEG;
-        if (s >= 1) {
-          p1 = prev[s - 1];
-          if ((s & 1) == 0) p1 += enter_cost;
-        }
-        if (s >= 3 && (s & 1)) p2 = prev[s - 2];
-        a = l[y * sl_y + s * sl_s] + logaddexp(logaddexp(prev[s], p1), p2);
-      }
-      cur[s] = a;
-      out[s] = a;
-    }
-    __syncthreads();
-    float* t = prev;
-    prev = cur;
-    cur = t;
-  }
-
-  for (int s = threadIdx.x; s < T_s; s += blockDim.x)
-    final_col[static_cast<long long>(b) * T_s + s] = prev[s];
+  const ForwardLattices item{lp + b * sl_b,
+                             sl_y,
+                             sl_s,
+                             alphas + static_cast<long long>(b) * T_s,
+                             static_cast<long long>(B) * T_s,
+                             1,
+                             final_col + static_cast<long long>(b) * T_s};
+  // Two pad cells of NEG left of the column: the arms read s - 1 and s - 2
+  // and select NEG where the rule has no arm.
+  forward_sweep<CELLS, RING, 2>(
+      item, T_s, T_y, t_y[b],
+      [=](int s) { return s == 0 ? enter_cost : (s == 1 ? 0.f : NEG); },
+      [=](const float* prev, int s) {
+        const float adv = prev[s - 1];
+        const float p1 = (s & 1) ? adv : (s == 0 ? NEG : adv + enter_cost);
+        const float p2 = ((s & 1) && s >= 3) ? prev[s - 2] : NEG;
+        return logaddexp(logaddexp(prev[s], p1), p2);
+      });
 }
 
 template <int CELLS, int RING>
@@ -390,21 +375,6 @@ cudaError_t with_skip_plan(int cells, int ring, bool shared, bool tiles,
   return cudaErrorInvalidValue;
 }
 
-int block_threads(int T_s) {
-  return T_s >= 1024 ? 1024 : ((T_s + 31) / 32) * 32;
-}
-
-// Two float columns of T_s in dynamic shared memory; above 48 KB the
-// kernel has to opt in.
-template <typename Kernel>
-cudaError_t column_smem(Kernel kernel, int T_s, size_t* smem) {
-  *smem = 2 * static_cast<size_t>(T_s) * sizeof(float);
-  if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
-}
-
 }  // namespace
 
 // value: f32 lattice read as [B, T_s, T_y] through element strides sv_*;
@@ -437,19 +407,22 @@ extern "C" int mas_skip_launch(const float* value, long long sv_b,
 
 // lp: f32 lattice read as [T_y, B, T_s] through element strides sl_*
 // (already masked with NEG at s >= 2*t_x+1); t_y: int32 [B]; alphas: f32
-// [T_y, B, T_s] contiguous; final_col: f32 [B, T_s] contiguous. Returns
-// cudaGetLastError() after the launch.
+// [T_y, B, T_s] contiguous, written whole; final_col: f32 [B, T_s]
+// contiguous; threads, cells, ring: the wrapper's plan. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// that was not built.
 extern "C" int forward_sum_skip_alpha_launch(
     const float* lp, long long sl_y, long long sl_b, long long sl_s,
     const int* t_y, float* alphas, float* final_col, int B, int T_s, int T_y,
-    float enter_cost, void* stream) {
-  size_t smem;
-  cudaError_t err = column_smem(forward_sum_skip_alpha_kernel, T_s, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  forward_sum_skip_alpha_kernel<<<B, block_threads(T_s), smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      lp, sl_y, sl_b, sl_s, t_y, alphas, final_col, B, T_s, T_y, enter_cost);
-  return static_cast<int>(cudaGetLastError());
+    int threads, int cells, int ring, float enter_cost, void* stream) {
+  return static_cast<int>(with_plan(cells, ring, [&](auto plan) {
+    using P = decltype(plan);
+    return launch_sweep(forward_sum_skip_alpha_kernel<P::cells, P::ring>, B,
+                        threads, cells, T_s,
+                        forward_smem(threads * cells, P::ring, 2), stream, lp,
+                        sl_y, sl_b, sl_s, t_y, alphas, final_col, B, T_s, T_y,
+                        enter_cost);
+  }));
 }
 
 // lp, alphas: f32 lattices read as [T_y, B, T_s] through element strides

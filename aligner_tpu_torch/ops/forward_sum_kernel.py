@@ -53,6 +53,13 @@ def _sweep_plan(T: int) -> tuple[int, int, int, int]:
                      f"got {T}")
 
 
+def _forward_smem(pitch: int, ring: int, pad: int) -> int:
+    """Shared-memory bytes of the forward sweep of H2 (pad 1) or H5 (pad
+    2) whose threads hold `pitch` cells: `ring` lp rows and two columns
+    behind `pad` cells each (csrc/forward_sweep.cuh: forward_smem)."""
+    return 4 * (ring * pitch + 2 * (pitch + pad))
+
+
 def _alphas_out(T_y: int, B: int, T: int, device) -> torch.Tensor:
     """The alpha lattice's output, which H2 writes whole: an uninitialised
     contiguous [T_y, B, T] tensor."""

@@ -7,7 +7,10 @@ durations) compute one function, forward decision bits followed by a
 walk, and differ only in TPU layout, VMEM budget and fusion. Here they
 are one kernel that reads the lattice through strides and writes either
 a path, in any layout, or per-token durations; it also runs as either
-half alone. The A/B variants of the two-pass route keep their option
+half alone. It launches with `_mas_plan`'s threads, cells per thread,
+ring of value rows fetched ahead (in tiles of 8 frames where the
+lattice's frames are contiguous) and the place of its bit plane (shared
+memory where it fits, else a scratch in device memory). The A/B variants of the two-pass route keep their option
 names: `mas_bits(chains=K)` (mas_pallas_bits_nat_multi) and
 `mas_backtrack(form="cmp"|"stage"|"split", chains=K)`
 (mas_pallas_backtrack_nat, _nat_split, _nat_multi), and
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .forward_sum_kernel import MAX_THREADS
 from .mas_reference import MAX_NEG_VAL
 
 KERNEL = "mas_kernel"
@@ -36,6 +40,28 @@ BITS_CHAINS_KERNEL = "mas_bits_chains_kernel"
 WALK_CHAINS_KERNEL = "mas_walk_chains_kernel"
 FORMS = ("cmp", "stage", "split")
 CHAINS = (1, 2, 4)  # what the chain kernels are tested and measured with
+
+MAX_SMEM = 232448     # a block's opt-in shared memory on the H100
+# (cells per thread, ring depth, where the plane lives, how value rows are
+# fetched) of H1, the plans `with_mas_plan` in csrc/mas.cu builds, in order
+# of preference: as H4's (ops/skip_dp_kernel.py: SKIP_VITERBI_PLANS).
+# "tiles" (a ring of 32 frames; each warp copies 8 frames x 4 tokens an
+# instruction) serves lattices whose frames are contiguous, such as
+# serving's natural [B, T_x, T_y]; "rows" (a ring of 8 or 4 frames; each
+# thread copies its own cell of a frame) any other, such as the training
+# step's frame-major view. For each cell count: the plane in shared memory,
+# behind the deeper ring first, then in device memory. Wider columns take
+# the wide kernel (`_mas_plan`).
+MAS_PLANS = (
+    (1, 32, "shared", "tiles"), (1, 32, "global", "tiles"),
+    (1, 8, "shared", "rows"), (1, 4, "shared", "rows"),
+    (1, 8, "global", "rows"),
+    (2, 8, "shared", "rows"), (2, 4, "shared", "rows"),
+    (2, 8, "global", "rows"),
+    (4, 8, "shared", "rows"), (4, 4, "shared", "rows"),
+    (4, 8, "global", "rows"),
+    (8, 4, "shared", "rows"), (8, 4, "global", "rows"))
+FETCHES = ("rows", "tiles", "wide")   # the launch's fetch codes
 
 
 def _on_cuda(value: torch.Tensor) -> bool:
@@ -170,28 +196,89 @@ def mas_expand_plain(idx: torch.Tensor, T_x: int) -> torch.Tensor:
     return (tokens == idx[:, None, :]).float()
 
 
-def _launch(value, t_x, t_y, bits, path, durations, max_neg_val):
-    """One launch of H1. `value` None: the walk alone over `bits`; `path`
-    and `durations` None: the forward sweep alone into `bits`."""
+def _mas_smem(pitch: int, ring: int, plane_frames: int) -> int:
+    """H1's shared-memory bytes for threads holding `pitch` cells: the
+    plane of `plane_frames` frames (one 32-bit word per 32 cells a frame),
+    `ring` value rows of pitch + 4 floats, two columns behind a pad cell
+    each and the walk's int16 token a frame (csrc/mas.cu: mas_smem)."""
+    return (4 * (pitch // 32) * plane_frames + 2 * plane_frames
+            + 4 * (ring * (pitch + 4) + 2 * (pitch + 1)))
+
+
+def _mas_plan(T_x: int, T_y: int, frames_contiguous: bool
+              ) -> tuple[int, int, int, str, str, int]:
+    """(threads, cells per thread, ring depth, planes, fetch,
+    shared-memory bytes) of H1 over T_x tokens and T_y frames: the first
+    plan of MAS_PLANS whose cells cover the column with at most
+    MAX_THREADS threads, whose fetch suits the lattice ("tiles" only where
+    its frames are contiguous) and whose layout fits a block's shared
+    memory, with the fewest threads, a multiple of 32, that cover the
+    column. planes is "shared" or "global" (an int32 scratch
+    [B, T_y * pitch / 32 + (T_y + 1) // 2] in device memory). A column
+    wider than the widest plan takes fetch "wide" (csrc/mas.cu:
+    mas_wide_kernel: the fewest cells a thread that MAX_THREADS threads
+    need, values loaded after the barrier, two unpadded columns, the plane
+    in device memory), as far as its columns fit. Chosen from the shape
+    and strides alone, before the launch."""
+    for cells, ring, planes, fetch in MAS_PLANS:
+        if cells * MAX_THREADS < T_x or (fetch == "tiles"
+                                         and not frames_contiguous):
+            continue
+        threads = 32 * -(-T_x // (32 * cells))
+        smem = _mas_smem(threads * cells, ring,
+                         T_y if planes == "shared" else 0)
+        if smem <= MAX_SMEM:
+            return threads, cells, ring, planes, fetch, smem
+    cells = -(-T_x // MAX_THREADS)
+    threads = 32 * -(-T_x // (32 * cells))
+    smem = 8 * T_x
+    if smem > MAX_SMEM:
+        raise ValueError(f"MAS takes at most {MAX_SMEM // 8} tokens, got "
+                         f"{T_x}")
+    return threads, cells, 0, "global", "wide", smem
+
+
+def _launch(value, t_x, t_y, bits, path, durations, max_neg_val, shape):
+    """One launch of H1 over a [B, T_x, T_y] lattice (`shape`). `value`
+    None: the walk alone over `bits`; else the sweep, which writes `bits`
+    whole when given (the forward alone). `path` (a [B, T_x, T_y] view)
+    or `durations` is written whole."""
+    B, T_x, T_y = shape
+    device = (value if value is not None else bits).device
+    threads, cells, ring, planes, fetch, _ = _mas_plan(
+        T_x, T_y, value is not None and value.stride(2) == 1)
+    scratch = torch.empty(
+        (B, T_y * threads * cells // 32 + (T_y + 1) // 2)
+        if planes == "global" else (0,), dtype=torch.int32, device=device)
     lib = _build.load_library()
-    B, T_y, T_x = bits.shape
     sv = value.stride() if value is not None else (0, 0, 0)
     sp = path.stride() if path is not None else (0, 0, 0)
-    with torch.cuda.device(bits.device):
+    with torch.cuda.device(device):
         err = lib.mas_launch(
             None if value is None else value.data_ptr(), *sv,
-            t_x.data_ptr(), t_y.data_ptr(), bits.data_ptr(),
+            t_x.data_ptr(), t_y.data_ptr(),
+            None if bits is None else bits.data_ptr(),
             None if path is None else path.data_ptr(), *sp,
             None if durations is None else durations.data_ptr(),
-            B, T_x, T_y, float(max_neg_val),
-            torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), B, T_x, T_y, threads, cells, ring,
+            int(planes == "shared"), FETCHES.index(fetch),
+            float(max_neg_val), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, KERNEL)
     _build.LAUNCHES[KERNEL] += 1
 
 
-def _scratch_bits(value):
-    B, T_x, T_y = value.shape
-    return torch.empty((B, T_y, T_x), dtype=torch.uint8, device=value.device)
+def _bits_out(B, T_y, T_x, device, fill):
+    """The decision bits' output, uint8 [B, T_y, T_x]: zero-filled for a
+    kernel that writes only set bits, else uninitialised, for one that
+    writes every byte."""
+    make = torch.zeros if fill else torch.empty
+    return make((B, T_y, T_x), dtype=torch.uint8, device=device)
+
+
+def _durations_out(B, T_x, device):
+    """H1's durations output, which it writes whole: uninitialised int32
+    [B, T_x]."""
+    return torch.empty((B, T_x), dtype=torch.int32, device=device)
 
 
 def _path_out(B, T_x, T_y, device, frame_major, fill):
@@ -228,11 +315,11 @@ def mas_bits(value: torch.Tensor, t_x, t_y, *, chains: int = 1,
         bits = _forward_bits(value, t_x, t_y, float(max_neg_val))
         bits = bits & _valid_items(t_x, t_y, T_x, T_y)[None, :, None]
         return bits.permute(1, 0, 2).to(torch.uint8).contiguous()
-    bits = torch.zeros((B, T_y, T_x), dtype=torch.uint8, device=value.device)
+    bits = _bits_out(B, T_y, T_x, value.device, fill=chains > 1)
     if not bits.numel():
         return bits
     if chains == 1:
-        _launch(value, t_x, t_y, bits, None, None, max_neg_val)
+        _launch(value, t_x, t_y, bits, None, None, max_neg_val, value.shape)
         return bits
     lib = _build.load_library()
     with torch.cuda.device(value.device):
@@ -303,10 +390,13 @@ def mas_backtrack(bits: torch.Tensor, t_x, t_y, *, form: str = "cmp",
     T_x] when frame_major; items outside 1 <= t_x <= t_y get zeros. Every
     route gives the same path. On a CUDA tensor:
 
-    form="cmp": the fused kernel's walk alone, one thread per item
-      scattering ones into a zero-filled path
-      (mas_pallas_backtrack_nat, form="cmp"); with chains=K > 1 the
-      K-chain walk, K items per block (mas_pallas_backtrack_nat_multi).
+    form="cmp": the fused kernel's walk alone (mas_pallas_backtrack_nat,
+      form="cmp"): each block loads its item's bytes into a bit plane
+      (a ballot of byte != 0 a warp), one thread walks it four frames a
+      round, and all threads write the whole path, zeros included, into
+      an uninitialised output; with chains=K > 1 the K-chain walk, K items
+      per block, scattering ones into a zero-filled path
+      (mas_pallas_backtrack_nat_multi).
     form="stage": the staged walk, which writes whole tiles of the path,
       zeros included, into an uninitialised output
       (mas_pallas_backtrack_nat, form="stage").
@@ -323,11 +413,11 @@ def mas_backtrack(bits: torch.Tensor, t_x, t_y, *, form: str = "cmp",
         path = _backtrack(bits.permute(1, 0, 2) != 0, t_x, t_y)
         return path.transpose(1, 2).contiguous() if frame_major else path
     out, view = _path_out(B, T_x, T_y, bits.device, frame_major,
-                          fill=form == "cmp")
+                          fill=chains > 1)
     if not out.numel():
         return out
     if form == "cmp" and chains == 1:
-        _launch(None, t_x, t_y, bits, view, None, 0.0)
+        _launch(None, t_x, t_y, bits, view, None, 0.0, (B, T_x, T_y))
         return out
     lib = _build.load_library()
     args = (bits.data_ptr(), t_x.data_ptr(), t_y.data_ptr(), out.data_ptr(),
@@ -376,10 +466,10 @@ def mas_path(value: torch.Tensor, t_x, t_y, *,
     if not _on_cuda(value):
         path = mas_plain(value, t_x, t_y, max_neg_val=max_neg_val)
         return path.transpose(1, 2).contiguous() if frame_major else path
-    out, view = _path_out(B, T_x, T_y, value.device, frame_major, fill=True)
+    out, view = _path_out(B, T_x, T_y, value.device, frame_major,
+                          fill=False)
     if out.numel():
-        _launch(value, t_x, t_y, _scratch_bits(value), view, None,
-                max_neg_val)
+        _launch(value, t_x, t_y, None, view, None, max_neg_val, value.shape)
     return out
 
 
@@ -393,10 +483,10 @@ def mas_durations(value: torch.Tensor, t_x, t_y, *,
         path = mas_plain(value, t_x, t_y, max_neg_val=max_neg_val)
         return path.sum(-1).to(torch.int32)
     B, T_x, T_y = value.shape
-    out = torch.zeros((B, T_x), dtype=torch.int32, device=value.device)
-    if value.numel():
-        _launch(value, t_x, t_y, _scratch_bits(value), None, out,
-                max_neg_val)
+    out = _durations_out(B, T_x, value.device)
+    if not value.numel():
+        return out.zero_()
+    _launch(value, t_x, t_y, None, None, out, max_neg_val, value.shape)
     return out
 
 

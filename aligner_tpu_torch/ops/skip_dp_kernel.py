@@ -11,7 +11,9 @@ aligner_tpu/ops/skip_dp_pallas.py:
   they fit, else a scratch in device memory);
 * kernel H5, the skip forward-sum alpha sweep, counterpart of
   forward_sum_skip_alpha_pallas (its per-frame form); plain version
-  `alpha_skip_plain`, the port of `_alpha_scan_skip`;
+  `alpha_skip_plain`, the port of `_alpha_scan_skip`. It launches with
+  `_sweep_plan`'s threads, cells per thread and ring of lp rows fetched
+  ahead, as H2 does (`csrc/forward_sweep.cuh`);
 * kernel H6, the beta sweep that emits the posterior gamma, counterpart
   of forward_sum_skip_gamma_pallas; plain version `gamma_skip_plain`,
   the recursion of `_beta_scan_skip` in the message form of
@@ -29,18 +31,17 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .forward_sum_kernel import (MAX_THREADS, NEG, _check_grad_inputs,
-                                 _gamma_out, _sweep_plan)
+from .forward_sum_kernel import (MAX_THREADS, NEG, _alphas_out,
+                                 _check_grad_inputs, _gamma_out, _sweep_plan)
 from .forward_sum_kernel import _check_lattice as _check_frame_major
 from .mas_kernel import _check_lattice as _check_state_major
-from .mas_kernel import _on_cuda
+from .mas_kernel import MAX_SMEM, _on_cuda
 from .skip_dp_reference import MAX_NEG_VAL, n_states
 
 KERNEL = "mas_skip_kernel"
 ALPHA_KERNEL = "forward_sum_skip_alpha_kernel"
 GAMMA_KERNEL = "forward_sum_skip_gamma_kernel"
 
-MAX_SMEM = 232448             # a block's opt-in shared memory on the H100
 # (cells per thread, ring depth, where the move planes live, how value
 # rows are fetched) of H4, the plans `with_skip_plan` in csrc/skip_dp.cu
 # builds, in order of preference. "tiles" (a ring of 32 frames; each warp
@@ -255,16 +256,17 @@ def forward_sum_skip_alpha(lp_tm: torch.Tensor, t_y,
     if lp_tm.device.type == "cpu":
         alphas = alpha_skip_plain(lp_tm, t_y, enter_cost)
         return alphas, alphas[-1]
-    alphas = torch.empty((T_y, B, T_s), dtype=torch.float32,
-                         device=lp_tm.device)
+    alphas = _alphas_out(T_y, B, T_s, lp_tm.device)
     final = torch.empty((B, T_s), dtype=torch.float32, device=lp_tm.device)
+    threads, cells, ring, _ = _sweep_plan(T_s)
     t_y = t_y.contiguous()
     lib = _build.load_library()
     with torch.cuda.device(lp_tm.device):
         err = lib.forward_sum_skip_alpha_launch(
             lp_tm.data_ptr(), *lp_tm.stride(), t_y.data_ptr(),
-            alphas.data_ptr(), final.data_ptr(), B, T_s, T_y,
-            float(enter_cost), torch.cuda.current_stream().cuda_stream)
+            alphas.data_ptr(), final.data_ptr(), B, T_s, T_y, threads,
+            cells, ring, float(enter_cost),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, ALPHA_KERNEL)
     _build.LAUNCHES[ALPHA_KERNEL] += 1
     return alphas, final

@@ -1,8 +1,9 @@
 """Floor of a sweep's frame step on the card: blocks that do nothing but
 the chain of H3 or H6 (`csrc/posterior_sweep.cuh`), of H2
-(`csrc/forward_sweep.cuh`, one logaddexp as H3) or of H4's forward and
-walk (`csrc/skip_dp.cu`), one cell per thread, in nanoseconds per
-dependent step.
+(`csrc/forward_sweep.cuh`, one logaddexp as H3), of H4's forward and
+walk (`csrc/skip_dp.cu`), of H1's forward (`csrc/mas.cu`) or of H5's
+fetched-ahead forward (`csrc/forward_sweep.cuh` with two arms), one cell
+per thread, in nanoseconds per dependent step.
 
     python -m aligner_tpu_torch.probe_chain
 
@@ -22,6 +23,14 @@ walk step is one thread's dependent read of a frame's plane words, at a
 word chosen by the state the last read gave, a shift, a subtract and the
 path's store; the planes in shared memory, or in device memory read from
 L2 (`ld.global.cg`).
+
+H1's forward step is max-plus over two arms (stay, advance; the diagonal's
+arm a select), one ballot of its decision bits stored by one lane a warp
+into a plane in shared memory, and one barrier. H5's step is the one
+`csrc/forward_sweep.cuh` runs for it: lp of frame y + 7 fetched by
+cp.async into a ring of 8 rows (from a lattice that stays in L2), the
+three arms as selects behind two pad cells, two nested logaddexp, the
+alpha row's store, the wait for frame y + 1 and one barrier.
 
 Builds its own small CUDA source with nvcc into `_build/`, launches 16
 blocks (the phase-7 batch) of 128 threads (H2's and H3's column) and of
@@ -134,6 +143,102 @@ __global__ void walk_chain(const uint2* __restrict__ gplanes,
     y = y == 0 ? frames - 1 : y - 1;
   }
 }
+// `steps` dependent max-plus steps of H1 over blockDim.x cells: the stay
+// and advance arms from the shared column (a pad cell of -1e9 left of it),
+// the diagonal's arm a select, one ballot of the decision bits stored by
+// one lane a warp into a plane of `frames` frames in shared memory
+// (cyclically), and one barrier.
+__global__ void mas_chain(float lv, float* __restrict__ out, int steps,
+                          int frames) {
+  extern __shared__ unsigned plane[];
+  const int T = blockDim.x;
+  const int W = T / 32;
+  float* prev = reinterpret_cast<float*>(plane + frames * W) + 1;
+  float* cur = prev + T + 1;
+  const int c = threadIdx.x;
+  if (c == 0) {
+    prev[-1] = -1e9f;
+    cur[-1] = -1e9f;
+  }
+  prev[c] = 0.f;
+  int slot = 0;
+  __syncthreads();
+  for (int y = 0; y < steps; ++y) {
+    const float p = prev[c];
+    const float ps = prev[c - 1];
+    const bool diag = c == y;
+    cur[c] = fmaxf(diag ? -1e9f : p, ps) + lv;
+    const unsigned word = __ballot_sync(~0u, c > 0 && (diag || p < ps));
+    if (c % 32 == 0) plane[slot + c / 32] = word;
+    slot = slot + W == frames * W ? 0 : slot + W;
+    float* const t = prev;
+    prev = cur;
+    cur = t;
+    __syncthreads();
+  }
+  out[blockIdx.x * T + c] = prev[c] + plane[c % (frames * W)];
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// `steps` dependent steps of H5's forward over blockDim.x cells: lp of
+// frame y + RING - 1 (a [rows, gridDim.x, blockDim.x] lattice, rows a
+// power of 2) fetched by cp.async into a ring of RING rows, each thread its
+// own cell; the stay, advance (with its cost on even cells) and skip arms
+// as selects from the shared column (two pad cells of NEG), two nested
+// logaddexp, the alpha row's store, the wait for frame y + 1 and one
+// barrier.
+template <int RING>
+__global__ void skip_alpha_chain(const float* __restrict__ lp, int rows,
+                                 float* __restrict__ alpha, int steps) {
+  extern __shared__ float ring[];
+  const int T = blockDim.x;
+  const int c = threadIdx.x;
+  float* prev = ring + RING * T + 2;
+  float* cur = prev + T + 2;
+  if (c < 2) {
+    prev[c - 2] = NEG;
+    cur[c - 2] = NEG;
+  }
+  prev[c] = 0.f;
+  const long long stride = static_cast<long long>(gridDim.x) * T;
+  const float* src = lp + static_cast<long long>(blockIdx.x) * T + c;
+  float* dst = alpha + static_cast<long long>(blockIdx.x) * T + c;
+  for (int f = 0; f < RING - 1; ++f) {
+    cp_async4(ring + f * T + c, src + (f & (rows - 1)) * stride);
+    cp_async_commit();
+  }
+  const float cost = (c & 1) ? 0.f : -0.5f;
+  cp_async_wait<RING - 2>();
+  __syncthreads();
+  for (int y = 0; y < steps; ++y) {
+    const float l = ring[(y & (RING - 1)) * T + c];
+    const float adv = prev[c - 1];
+    const float p1 = (c & 1) ? adv : (c == 0 ? NEG : adv + cost);
+    const float p2 = ((c & 1) && c >= 3) ? prev[c - 2] : NEG;
+    const float a = l + logaddexp(logaddexp(prev[c], p1), p2);
+    cur[c] = a;
+    __stwb(dst + (y & (rows - 1)) * stride, a);
+    const int f = y + RING - 1;
+    cp_async4(ring + (f & (RING - 1)) * T + c, src + (f & (rows - 1)) * stride);
+    cp_async_commit();
+    float* const t = prev;
+    prev = cur;
+    cur = t;
+    cp_async_wait<RING - 2>();
+    __syncthreads();
+  }
+}
 template <class Launch>
 float best_of_five(Launch launch) {
   cudaEvent_t start, end;
@@ -180,6 +285,27 @@ extern "C" float time_viterbi(int walk, const void* gplanes, float* out,
   return best_of_five([&] {
     walk_chain<true><<<blocks, threads, 0>>>(
         static_cast<const uint2*>(gplanes), out, steps, frames);
+  });
+}
+// Best of five launches in ms of H1's bare forward chain, or -1 if a
+// launch failed.
+extern "C" float time_mas(float* out, int blocks, int threads, int steps,
+                          int frames) {
+  const size_t smem = static_cast<size_t>(frames) * threads / 32 * 4 +
+                      2 * (threads + 1) * sizeof(float);
+  cudaFuncSetAttribute(mas_chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  return best_of_five([&] {
+    mas_chain<<<blocks, threads, smem>>>(-0.5f, out, steps, frames);
+  });
+}
+// Best of five launches in ms of H5's fetched-ahead chain (a ring of 8
+// rows), or -1 if a launch failed.
+extern "C" float time_skip_alpha(const float* lp, int rows, float* alpha,
+                                 int blocks, int threads, int steps) {
+  const size_t smem = (8 * threads + 2 * (threads + 2)) * sizeof(float);
+  return best_of_five([&] {
+    skip_alpha_chain<8><<<blocks, threads, smem>>>(lp, rows, alpha, steps);
   });
 }
 // Best of five launches in ms, or -1 if a launch failed.
@@ -269,6 +395,36 @@ def main() -> int:
                           "blocks": BLOCKS, "threads": threads,
                           "ns_per_step": ms / STEPS * 1e6, "device": card}),
               flush=True)
+    lib.time_mas.restype = ctypes.c_float
+    lib.time_mas.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int]
+    threads = WIDTHS[0]                              # H1 at phase 7
+    out = torch.empty(BLOCKS * threads, device="cuda")
+    ms = lib.time_mas(out.data_ptr(), BLOCKS, threads, STEPS, frames)
+    if ms < 0:
+        print(json.dumps({"error": "mas launch failed"}))
+        return 1
+    print(json.dumps({"probe": "mas", "step": "H1 forward: max-plus, 2 "
+                      "arms, 1 ballot into a shared plane", "blocks": BLOCKS,
+                      "threads": threads, "ns_per_step": ms / STEPS * 1e6,
+                      "device": card}), flush=True)
+    lib.time_skip_alpha.restype = ctypes.c_float
+    lib.time_skip_alpha.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int]
+    threads, rows = WIDTHS[1], 1024                  # H5 at phase 7
+    lp = torch.full((rows, BLOCKS, threads), -math.log(3), device="cuda")
+    alpha = torch.empty_like(lp)
+    ms = lib.time_skip_alpha(lp.data_ptr(), rows, alpha.data_ptr(), BLOCKS,
+                             threads, STEPS)
+    if ms < 0:
+        print(json.dumps({"error": "skip alpha launch failed"}))
+        return 1
+    print(json.dumps({"probe": "skip_alpha", "step": "H5 forward: lp "
+                      "fetched 8 frames ahead from L2, 3 arms by selects, 2 "
+                      "logaddexp, alpha stored", "blocks": BLOCKS,
+                      "threads": threads, "ns_per_step": ms / STEPS * 1e6,
+                      "device": card}), flush=True)
     return 0
 
 

@@ -17,7 +17,10 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
 
   1. the card (nvidia-smi name and power limit)
   2. kernel build
-  3. H1 (MAS) against mas_plain and the numpy oracle, bit-identical
+  3. H1 (MAS) against mas_plain and the numpy oracle, bit-identical, with
+     its bit plane in shared memory (as planned) and forced into device
+     memory, natural (tiles) and frame-major (rows), durations mode and
+     the long form 128x8192, every output pre-filled with garbage
   4. H2 (forward-sum alpha) against alpha_plain, rtol 1e-5, over the
      whole lattice (frozen frames included) written over NaN, with edge
      items, a strided column and T_x = 1100
@@ -26,7 +29,10 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
   7. CUDA-event times of each kernel against its plain version, beside
      the least time the card could take for the same bytes, operations
      and special-function results (H7's and H9's cluster plan beside them);
-     for H2-H6 also the time per frame of the longest item, H3 again at
+     for H1-H6 also the time per frame of the longest item; H1 again
+     frame-major, with its plane forced into device memory and at the
+     profiled training step's lattice, H5 at T_s = 1041, and the serving
+     walls of maximum_path and BatchAligner; H3 again at
      config 5's shape and at the profiled training step's, H4 with its
      move planes forced into device memory and at the profiled pause
      step's lattice in both layouts; for H12 also the one library call
@@ -46,8 +52,9 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      move planes in shared memory and in device memory, both layouts
  12. H5 (skip forward-sum alpha) against alpha_skip_plain and H6 (skip
      beta/posterior) against gamma_skip_plain, rtol 1e-5 / atol 1e-6, with
-     and without an enter cost, H6 into an output pre-filled with NaN,
-     and the skip loss's backward against the plain route's
+     each of the three enter costs, both into outputs pre-filled with NaN
+     (H5 also at T_s = 1041), and the skip loss's backward against the
+     plain route's
  13. pause-aware path with every plain version patched to raise:
      SkipBatchAligner on three requests, the pause OTA forward, and
      train_aligner on a silence-bearing corpus with the pause_bias
@@ -74,7 +81,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      serving batch B=256, 128x1024, and at an odd shape (T_x no multiple of
      32, T_y no multiple of 128), with edge items: `mas_bits` with 1, 2
      and 4 chains (H1's forward alone, H13) equal to `_forward_bits` and
-     to each other on every cell;
+     to each other on every cell (H1's from both layouts and in both
+     plane forms, over garbage; its walk alone in both plane forms);
      `mas_backtrack` as cmp (H1's walk alone), stage (H10), split (H11 +
      H12) and with 2 and 4 chains (H14) equal to `_backtrack`, `mas_plain`,
      the fused H1 and the numpy oracle, bit for bit, in both layouts; H11's
@@ -216,48 +224,128 @@ def phase_build():
             log(2, "ptxas: " + line.strip())
 
 
+PLANES = ("shared", "global")   # where H1's bit plane lives
+
+
+@contextlib.contextmanager
+def mas_planes_in(where):
+    """While active, H1 keeps its bit plane where `where` says: "shared"
+    is its plan as chosen; "global" forces it into device memory whatever
+    the shape, with its plan's threads, cells and fetch and the ring of
+    the device-memory plan for them."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    plan = mk._mas_plan
+
+    def device_memory_plan(T_x, T_y, frames_contiguous):
+        threads, cells, ring, planes, fetch, smem = plan(T_x, T_y,
+                                                         frames_contiguous)
+        if fetch == "wide":
+            return threads, cells, ring, planes, fetch, smem
+        ring = next(r for c, r, p, f in mk.MAS_PLANS
+                    if (c, p, f) == (cells, "global", fetch))
+        return (threads, cells, ring, "global", fetch,
+                mk._mas_smem(threads * cells, ring, 0))
+
+    patches = [] if where == "shared" else [(mk, "_mas_plan",
+                                             device_memory_plan)]
+    with patched_attrs(patches):
+        yield
+
+
+@contextlib.contextmanager
+def mas_outputs_prefilled():
+    """While active, every output that H1 writes whole starts as garbage
+    (paths NaN, durations -1, bytes 0xA5), so a cell it leaves unwritten
+    shows."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    path_out, bits_out = mk._path_out, mk._bits_out
+    durations_out = mk._durations_out
+
+    def paths(*args, fill):
+        out, view = path_out(*args, fill=fill)
+        if not fill:
+            out.fill_(float("nan"))
+        return out, view
+
+    def bits(*args, fill):
+        out = bits_out(*args, fill=fill)
+        return out if fill else out.fill_(0xA5)
+
+    with patched_attrs([(mk, "_path_out", paths), (mk, "_bits_out", bits),
+                        (mk, "_durations_out",
+                         lambda *args: durations_out(*args).fill_(-1))]):
+        yield
+
+
 def phase_mas(dev):
-    from aligner_tpu_torch.ops.mas_kernel import (mas_durations, mas_path,
-                                                  mas_plain)
+    """H1 against mas_plain and the numpy oracle, in each plane form and
+    fetch (natural lattice: tiles; frame-major view: rows), every output
+    pre-filled with garbage; returns the max abs error (0 or the phase
+    fails)."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
     from aligner_tpu_torch.ops.mas_reference import mas_single
     max_err = 0.0
+    inputs = []
     for seed in (0, 1):
         value, t_x, t_y = ragged(seed, B_MAS, T_X, T_Y)
         if seed == 1:           # contract edges: t_x > t_y, and t_x = 0
             t_x[0], t_y[0] = T_X, T_X // 2
             t_x[1], t_y[1] = 0, T_Y // 2
-        v = torch.from_numpy(value).to(dev)
-        tx = torch.from_numpy(t_x).to(dev)
-        ty = torch.from_numpy(t_y).to(dev)
-        path = mas_path(v, tx, ty)
-        want = mas_plain(v, tx, ty)
-        torch.cuda.synchronize()
-        require_equal(f"H1 seed {seed} vs mas_plain", path, want)
-        max_err = max(max_err, (path - want).abs().max().item())
-        if seed == 1 and path[:2].any():
-            raise AssertionError("H1: invalid items must get zero paths")
-        for i in range(2, 6):
-            oracle = mas_single(value[i].copy(), int(t_x[i]), int(t_y[i]))
-            if not np.array_equal(path[i].cpu().numpy().astype(np.int32),
-                                  oracle):
-                raise AssertionError(f"H1 seed {seed} item {i} vs oracle")
-        require_equal(f"H1 seed {seed} durations mode",
-                      mas_durations(v, tx, ty),
-                      path.sum(-1).to(torch.int32))
-        fm = mas_path(v.transpose(1, 2).contiguous().transpose(1, 2), tx, ty,
-                      frame_major=True)
-        require_equal(f"H1 seed {seed} frame-major", fm,
-                      path.transpose(1, 2))
-        log(3, f"H1 seed {seed}: B={B_MAS} {T_X}x{T_Y} bit-identical to "
-               f"mas_plain, items 2-5 to the numpy oracle; durations and "
-               f"frame-major modes agree")
-    value, t_x, t_y = ragged(2, 2, T_X, LONG_T_Y)
-    v = torch.from_numpy(value).to(dev)
-    tx = torch.from_numpy(t_x).to(dev)
-    ty = torch.from_numpy(t_y).to(dev)
-    require_equal("H1 long form", mas_path(v, tx, ty), mas_plain(v, tx, ty))
-    log(3, f"H1 long form B=2 {T_X}x{LONG_T_Y} (t_y={t_y.tolist()}): "
-           f"bit-identical to mas_plain")
+        inputs.append((seed, value, t_x, t_y))
+    long_form = ragged(2, 2, T_X, LONG_T_Y)
+    with mas_outputs_prefilled():
+        for where in PLANES:
+            with mas_planes_in(where):
+                for seed, value, t_x, t_y in inputs:
+                    v, tx, ty = (torch.from_numpy(a).to(dev)
+                                 for a in (value, t_x, t_y))
+                    fm_view = v.transpose(1, 2).contiguous().transpose(1, 2)
+                    plans = [mk._mas_plan(T_X, T_Y, c)[:5]
+                             for c in (True, False)]
+                    path = mk.mas_path(v, tx, ty)
+                    want = mk.mas_plain(v, tx, ty)
+                    torch.cuda.synchronize()
+                    where_ = f"H1 planes {where} seed {seed}"
+                    require_equal(f"{where_} vs mas_plain", path, want)
+                    max_err = max(max_err, (path - want).abs().max().item())
+                    if seed == 1 and path[:2].any():
+                        raise AssertionError("H1: invalid items must get "
+                                             "zero paths")
+                    for i in range(2, 6):
+                        oracle = mas_single(value[i].copy(), int(t_x[i]),
+                                            int(t_y[i]))
+                        if not np.array_equal(
+                                path[i].cpu().numpy().astype(np.int32),
+                                oracle):
+                            raise AssertionError(f"{where_} item {i} vs "
+                                                 f"oracle")
+                    require_equal(f"{where_} durations mode",
+                                  mk.mas_durations(v, tx, ty),
+                                  want.sum(-1).to(torch.int32))
+                    fm = mk.mas_path(fm_view, tx, ty, frame_major=True)
+                    require_equal(f"{where_} frame-major", fm,
+                                  want.transpose(1, 2))
+                    log(3, f"{where_}: B={B_MAS} {T_X}x{T_Y} bit-identical "
+                           f"to mas_plain, items 2-5 to the numpy oracle; "
+                           f"durations and frame-major modes agree; every "
+                           f"output written over garbage; plans (threads, "
+                           f"cells, ring, planes, fetch) natural {plans[0]}, "
+                           f"frame-major {plans[1]}")
+                value, t_x, t_y = long_form
+                v, tx, ty = (torch.from_numpy(a).to(dev)
+                             for a in (value, t_x, t_y))
+                want = mk.mas_plain(v, tx, ty)
+                require_equal(f"H1 planes {where} long form",
+                              mk.mas_path(v, tx, ty), want)
+                require_equal(
+                    f"H1 planes {where} long form, frame-major",
+                    mk.mas_path(v.transpose(1, 2).contiguous()
+                                .transpose(1, 2), tx, ty, frame_major=True),
+                    want.transpose(1, 2))
+                log(3, f"H1 planes {where} long form B=2 {T_X}x{LONG_T_Y} "
+                       f"(t_y={t_y.tolist()}), natural and frame-major: "
+                       f"bit-identical to mas_plain; plan "
+                       f"{mk._mas_plan(T_X, LONG_T_Y, True)[:5]}")
     return max_err
 
 
@@ -329,9 +417,23 @@ def phase_two_pass_kernels(dev):
         want_bits = plain_tm.permute(1, 0, 2).to(torch.uint8)
         want_bits = want_bits * mk._valid_items(tx, ty, T_x, T_y)[:, None,
                                                                   None]
-        bits = mk.mas_bits(v, tx, ty)
-        torch.cuda.synchronize()
-        require_equal(f"H1 bits alone, {T_x}x{T_y}", bits, want_bits)
+        want = mk.mas_plain(v, tx, ty)
+        # H1's two halves in each plane form, every output written over
+        # garbage, the forward from either layout.
+        with mas_outputs_prefilled():
+            for where in PLANES:
+                with mas_planes_in(where):
+                    for lattice in (v, v.transpose(1, 2).contiguous()
+                                    .transpose(1, 2)):
+                        bits = mk.mas_bits(lattice, tx, ty)
+                        torch.cuda.synchronize()
+                        require_equal(f"H1 bits alone, planes {where}, "
+                                      f"{T_x}x{T_y}", bits, want_bits)
+                    for fm in (False, True):
+                        got = mk.mas_backtrack(bits, tx, ty, frame_major=fm)
+                        require_equal(f"H1 walk alone, planes {where}, "
+                                      f"frame_major={fm}, {T_x}x{T_y}", got,
+                                      want.transpose(1, 2) if fm else want)
         if bits[2:4].any():
             raise AssertionError("mas_bits: invalid items must get zeros")
         for k in (2, 4):
@@ -340,7 +442,6 @@ def phase_two_pass_kernels(dev):
             errs["mas_bits_chains_kernel"] = max(
                 errs["mas_bits_chains_kernel"],
                 float((got != want_bits).sum()))
-        want = mk.mas_plain(v, tx, ty)
         require_equal("_backtrack of the plain bits vs mas_plain",
                       mk._backtrack(plain_tm, tx, ty), want)
         require_equal("H1 fused vs mas_plain", mk.mas_path(v, tx, ty), want)
@@ -382,7 +483,9 @@ def phase_two_pass_kernels(dev):
         log(18, f"B={B} {T_x}x{T_y} with edge items (t_x=1, t_x=t_y, "
                 f"t_x>t_y, t_x=0, full): mas_bits with 1, 2, 4 chains equal "
                 f"to _forward_bits on every cell (0 off the band and on "
-                f"invalid items); mas_backtrack cmp, stage, split, chains=2, "
+                f"invalid items; H1's from both layouts and plane forms, "
+                f"over garbage); H1's walk alone in both plane forms over "
+                f"NaN; mas_backtrack cmp, stage, split, chains=2, "
                 f"chains=4 bit-identical to _backtrack, mas_plain and the "
                 f"fused H1 in both layouts, items 0, 1, 4, 5, 6 to the numpy "
                 f"oracle; H11 indices equal to mas_walk_idx_plain; H10 and "
@@ -422,16 +525,18 @@ def fs_grad_inputs(seed, dev, **shape):
 
 @contextlib.contextmanager
 def alphas_prefilled_with_nan():
-    """While active, H2 writes into an output pre-filled with NaN
-    (allocated uninitialised otherwise), so a cell it leaves unwritten
+    """While active, H2 and H5 write into an output pre-filled with NaN
+    (allocated uninitialised otherwise), so a cell they leave unwritten
     shows."""
     from aligner_tpu_torch.ops import forward_sum_kernel as fs
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
     alphas_out = fs._alphas_out
 
     def prefilled(*args):
         return alphas_out(*args).fill_(float("nan"))
 
-    with patched_attrs([(fs, "_alphas_out", prefilled)]):
+    with patched_attrs([(fs, "_alphas_out", prefilled),
+                        (sk, "_alphas_out", prefilled)]):
         yield
 
 
@@ -718,7 +823,8 @@ def phase_times(dev):
     }
     plan = "C={}, w={}".format(*mb._cluster_plan(B_OTA, T_Y + 1, D_MOBO))
     # the sweeps over frames: the longest item's frames, which set the chain
-    frames = {"forward_sum_alpha_kernel": int(fty.max()),
+    frames = {"mas_kernel": int(ty.max()),
+              "forward_sum_alpha_kernel": int(fty.max()),
               "forward_sum_grad_kernel": int(gty.max()),
               "mas_skip_kernel": int(sty.max()),
               "forward_sum_skip_alpha_kernel": int(sgty.max()),
@@ -743,6 +849,7 @@ def phase_times(dev):
                   else ""))
     posterior_times(dev)
     skip_viterbi_times(dev)
+    mas_times(dev)
     for B, D in ((64, D_MOBO), (B_SERVE, D_MOBO), (B_OTA, 1)):
         # H7 and H9 at a smaller cluster, at one block per item (B > the
         # card's SMs), and with D = 1, where a token step is the chain's
@@ -777,6 +884,89 @@ def phase_times(dev):
            f"timed here and called nowhere in the package; H12's plain "
            f"version is the two-call expression compare + cast)")
     return times
+
+
+def wall_ms(fn, reps):
+    """Median host-clock ms of `reps` synchronised calls of fn() after one
+    warm-up call: what a caller waits for."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mas_times(dev):
+    """H1 on phase 7's lattice read frame-major (rows) and with its plane
+    forced into device memory, at the profiled training step's
+    frame-major lattice (phase 9's first batch: its lengths, random
+    values); H5 at T_s = 1041; each with the time per frame of the longest
+    item. Then the serving walls (host clock, synchronised): maximum_path
+    at B=32 beside H1's device time in it, and BatchAligner's align and
+    align_durations on one request of 40 lattices."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    from aligner_tpu_torch.ops import skip_dp_kernel as sk
+    from aligner_tpu_torch.utils.masks import lattice_mask
+    value, t_x, t_y = ragged(0, B_MAS, T_X, T_Y)
+    v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+    frames = int(ty.max())
+    fm_view = v.transpose(1, 2).contiguous().transpose(1, 2)
+    runs = {"natural (tiles)": (lambda: mk.mas_path(v, tx, ty), True),
+            "frame-major (rows)": (
+                lambda: mk.mas_path(fm_view, tx, ty, frame_major=True),
+                False)}
+    for where in PLANES:
+        with mas_planes_in(where):
+            for layout, (run, contiguous) in runs.items():
+                ms = cuda_ms(run, 20)
+                log(7, f"mas_kernel, plane {where}, {layout}, B={B_MAS} "
+                       f"{T_X}x{T_Y}: {ms:.4f} ms; {ms * 1e6 / frames:.1f} "
+                       f"ns a frame over the longest item's {frames}; plan "
+                       f"{mk._mas_plan(T_X, T_Y, contiguous)}")
+    batch = train_batches()[0][0]
+    B, T_x = batch["tokens"].shape
+    T_y = batch["mel"].shape[1]
+    btx, bty = (torch.as_tensor(np.asarray(batch[k], np.int32)).to(dev)
+                for k in ("text_lengths", "mel_lengths"))
+    rng = np.random.default_rng(16)
+    fm = torch.from_numpy((rng.standard_normal((B, T_y, T_x)) * 3)
+                          .astype(np.float32)).to(dev)
+    require_equal("H1 at the training step's lattice vs mas_plain",
+                  mk.mas_path(fm.transpose(1, 2), btx, bty,
+                              frame_major=True),
+                  mk.mas_plain(fm.transpose(1, 2), btx, bty)
+                  .transpose(1, 2))
+    ms = cuda_ms(lambda: mk.mas_path(fm.transpose(1, 2), btx, bty,
+                                     frame_major=True), 20)
+    log(7, f"mas_kernel at the profiled training step's lattice, B={B} "
+           f"{T_x}x{T_y}, frame-major: {ms:.4f} ms; "
+           f"{ms * 1e6 / int(bty.max()):.1f} ns a frame over the longest "
+           f"item's {int(bty.max())}; plan {mk._mas_plan(T_x, T_y, False)}")
+    lp_tm, _, _, _, sty, _ = skip_fs_inputs(dev, 0.0, T_X_WIDE)
+    ms = cuda_ms(lambda: sk.forward_sum_skip_alpha(lp_tm, sty), 20)
+    log(7, f"forward_sum_skip_alpha_kernel at B={B_OTA} "
+           f"{2 * T_X_WIDE + 1} states x {T_Y}: {ms:.4f} ms; "
+           f"{ms * 1e6 / int(sty.max()):.1f} ns a frame over the longest "
+           f"item's {int(sty.max())}")
+    mask = lattice_mask(tx, ty, T_X, T_Y)
+    path_ms, kernels = device_ms(lambda: at.maximum_path(v, mask), 20,
+                                 "mas_kernel")
+    request = serving_requests()[0]
+    aligner = at.BatchAligner(max_text=T_X, max_mel=T_Y, max_batch=32,
+                              device=dev)
+    walls = [wall_ms(run, 10) for run in (
+        lambda: at.maximum_path(v, mask), lambda: aligner.align(request),
+        lambda: aligner.align_durations(request))]
+    log(7, f"serving walls (median of 10, synchronised): maximum_path "
+           f"B={B_MAS} {T_X}x{T_Y} {walls[0]:.4f} ms (H1 {path_ms:.4f} ms "
+           f"of device time in it, kernels {kernels}); BatchAligner on 40 "
+           f"lattices: align {walls[1]:.4f} ms, align_durations "
+           f"{walls[2]:.4f} ms")
 
 
 def posterior_times(dev):
@@ -1473,26 +1663,27 @@ def phase_skip_mas(dev):
     return max_err
 
 
-def skip_fs_inputs(dev, cost):
-    """The skip beta sweep's inputs at B=16, 257 states x 1024 frames,
-    ragged, with the edge items of `grad_inputs`: (lp_tm, alphas, total,
-    t_x, t_y, log_probs). Items 0-5: t_y = 1; t_x > t_y; t_x = 0; a
-    NEG-saturated diagonal band; a fully dead frame; -inf inputs."""
+def skip_fs_inputs(dev, cost, T_x=T_X):
+    """The skip beta sweep's inputs at B=16, 2*T_x+1 states (257 unless
+    given) x 1024 frames, ragged, with the edge items of `grad_inputs`:
+    (lp_tm, alphas, total, t_x, t_y, log_probs); alphas from H5. Items
+    0-5: t_y = 1; t_x > t_y; t_x = 0; a NEG-saturated diagonal band; a
+    fully dead frame; -inf inputs."""
     from aligner_tpu_torch.ops.forward_sum import _masked_logp
     from aligner_tpu_torch.ops.skip_dp import (_total_from_alphas_skip,
                                                _valid_items_skip, n_states)
     from aligner_tpu_torch.ops.skip_dp_kernel import (NEG,
                                                       forward_sum_skip_alpha)
     rng = np.random.default_rng(12)
-    T_s = 2 * T_X + 1
+    T_s = 2 * T_x + 1
     logits = torch.from_numpy(
         rng.standard_normal((B_OTA, T_Y, T_s)).astype(np.float32) * 3)
     lp = torch.log_softmax(logits, dim=-1).numpy()
-    t_x = rng.integers(T_X // 2, T_X + 1, B_OTA).astype(np.int32)
+    t_x = rng.integers(T_x // 2, T_x + 1, B_OTA).astype(np.int32)
     t_y = np.maximum(t_x, rng.integers(T_Y // 4, T_Y + 1, B_OTA)) \
         .astype(np.int32)
     t_x[0], t_y[0] = 1, 1
-    t_x[1], t_y[1] = T_X, T_X // 2
+    t_x[1], t_y[1] = T_x, T_x // 2
     t_x[2] = 0
     center = np.arange(T_Y)[:, None] * (2 * t_x[3] + 1) // t_y[3]
     lp[3] = np.where(np.abs(np.arange(T_s)[None, :] - center) <= 3, lp[3],
@@ -1510,17 +1701,34 @@ def skip_fs_inputs(dev, cost):
 
 
 def phase_skip_sums(dev):
-    """H5 against alpha_skip_plain and H6 against gamma_skip_plain on the
-    same inputs, and the skip loss's gradient through autograd (kernel
-    route) against the plain versions'; returns both max abs errors."""
+    """H5 against alpha_skip_plain (also at T_s = 1041) and H6 against
+    gamma_skip_plain on the same inputs, both over NaN, with each enter
+    cost, and the skip loss's gradient through autograd (kernel route)
+    against the plain versions'; returns both max abs errors."""
     from aligner_tpu_torch.ops.skip_dp import (_valid_items_skip,
                                                forward_sum_skip_loss)
     from aligner_tpu_torch.ops.skip_dp_kernel import (NEG, alpha_skip_plain,
                                                       forward_sum_skip_grad,
                                                       gamma_skip_plain)
     alpha_err = gamma_err = 0.0
-    for cost in (0.0, -1.2):
-        lp_tm, alphas, total, tx, ty, log_probs = skip_fs_inputs(dev, cost)
+    # H5 alone at T_s = 1041 (two cells a thread), its lattice over NaN.
+    for cost in ENTER_COSTS:
+        with alphas_prefilled_with_nan():
+            lp_tm, alphas, _, _, ty, _ = skip_fs_inputs(dev, cost, T_X_WIDE)
+        want_alphas = alpha_skip_plain(lp_tm, ty, cost)
+        torch.testing.assert_close(alphas, want_alphas, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        carries = want_alphas > 0.5 * NEG
+        alpha_err = max(alpha_err, (alphas - want_alphas)[carries]
+                        .abs().max().item())
+        log(12, f"H5 enter_cost {cost}: B={B_OTA} {2 * T_X_WIDE + 1} states "
+                f"x {T_Y} with the edge items, written over NaN: within rtol "
+                f"{GRAD_RTOL} / atol {GRAD_ATOL} of alpha_skip_plain over "
+                f"the whole lattice (max abs err {alpha_err:.3g})")
+    for cost in ENTER_COSTS:
+        with alphas_prefilled_with_nan():
+            lp_tm, alphas, total, tx, ty, log_probs = skip_fs_inputs(dev,
+                                                                     cost)
         want_alphas = alpha_skip_plain(lp_tm, ty, cost)
         with gamma_prefilled_with_nan():
             gamma = forward_sum_skip_grad(lp_tm, alphas, total, tx, ty,
@@ -1551,7 +1759,7 @@ def phase_skip_sums(dev):
             rtol=GRAD_RTOL, atol=GRAD_ATOL)
         log(12, f"H5, H6 enter_cost {cost}: B={B_OTA} {2 * T_X + 1} states "
                 f"x {T_Y} with edge items (t_y=1, t_x>t_y, t_x=0, NEG "
-                f"band, dead frame, -inf), H6 into an output pre-filled with "
+                f"band, dead frame, -inf), both into outputs pre-filled with "
                 f"NaN: within rtol {GRAD_RTOL} / atol "
                 f"{GRAD_ATOL} of alpha_skip_plain and gamma_skip_plain (max "
                 f"abs err {alpha_err:.3g} and {gamma_err:.3g}), gamma 0 "

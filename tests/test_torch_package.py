@@ -256,22 +256,102 @@ def test_other_devices_raise(call):
             getattr(mas_kernel, call)(value, lengths, lengths)
 
 
+@pytest.fixture
+def mas_planes(monkeypatch):
+    """planes(where) makes H1 keep its bit plane in device memory
+    ("global") whatever the shape, with its plan's threads, cells and
+    fetch and the device-memory ring for them; "shared" keeps the plan
+    (the wide kernel's plane is in device memory either way)."""
+    plan = mas_kernel._mas_plan
+
+    def force(where):
+        if where == "shared":
+            return
+
+        def device_memory_plan(T_x, T_y, frames_contiguous):
+            threads, cells, ring, planes, fetch, smem = plan(
+                T_x, T_y, frames_contiguous)
+            if fetch == "wide":
+                return threads, cells, ring, planes, fetch, smem
+            ring = next(r for c, r, p, f in mas_kernel.MAS_PLANS
+                        if (c, p, f) == (cells, "global", fetch))
+            return (threads, cells, ring, "global", fetch,
+                    mas_kernel._mas_smem(threads * cells, ring, 0))
+
+        monkeypatch.setattr(mas_kernel, "_mas_plan", device_memory_plan)
+
+    return force
+
+
+@pytest.fixture
+def mas_outputs_prefilled(monkeypatch):
+    """Every output that H1 writes whole starts as garbage: paths NaN,
+    durations -1, bits 0xA5; so a cell it leaves unwritten shows."""
+    path_out = mas_kernel._path_out
+    bits_out = mas_kernel._bits_out
+    durations_out = mas_kernel._durations_out
+
+    def paths(*args, fill):
+        out, view = path_out(*args, fill=fill)
+        if not fill:
+            out.fill_(float("nan"))
+        return out, view
+
+    def bits(*args, fill):
+        out = bits_out(*args, fill=fill)
+        return out if fill else out.fill_(0xA5)
+
+    monkeypatch.setattr(mas_kernel, "_path_out", paths)
+    monkeypatch.setattr(mas_kernel, "_bits_out", bits)
+    monkeypatch.setattr(mas_kernel, "_durations_out",
+                        lambda *args: durations_out(*args).fill_(-1))
+
+
+# MAS: each shape with the bit plane in shared memory, as planned, and in
+# device memory; the natural lattice (frames contiguous: tiles of 8
+# frames) and a frame-major view (rows); T_x = 1100 (two cells a thread);
+# the long form 128x8192; T_x = 8200 past the widest plan (the wide
+# kernel). Item 0 has t_x > t_y, the last t_x = 0.
 @pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["shared", "global"])
 @pytest.mark.parametrize("seed,B,T_x,T_y", [(0, 8, 16, 61), (1, 5, 40, 200),
-                                            (2, 2, 1100, 1300)])
-def test_mas_kernel_matches_plain(cuda, seed, B, T_x, T_y):
-    """Bit-identical paths, durations and frame-major output; the last
-    case strides threads over T_x > 1024."""
+                                            (2, 2, 1100, 1300),
+                                            (3, 3, 128, 8192),
+                                            (4, 3, 8200, 8300)])
+def test_mas_kernel_matches_plain(cuda, mas_planes, mas_outputs_prefilled,
+                                  seed, B, T_x, T_y, planes):
+    """Bit-identical paths, durations and frame-major output, every cell
+    written over garbage; the forward alone equal to `mas_bits` on the
+    CPU on every byte, from either layout; the walk alone equal to the
+    plain path, also on bits from elsewhere (bytes of 3, ones at token
+    0)."""
+    mas_planes(planes)
     value, t_x, t_y = ragged(seed, B, T_x, T_y)
     v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    fm_view = v.transpose(1, 2).contiguous().transpose(1, 2)
+    for lattice, contiguous in ((v, True), (fm_view, False)):
+        assert mas_kernel._mas_plan(T_x, T_y, contiguous)[3] == (
+            "global" if planes == "global" or T_x > 8192 else "shared")
+    want = mas_kernel.mas_plain(v, tx, ty)
     path = mas_kernel.mas_path(v, tx, ty)
-    torch.testing.assert_close(path, mas_kernel.mas_plain(v, tx, ty),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(path, want, rtol=0, atol=0)
     torch.testing.assert_close(mas_kernel.mas_durations(v, tx, ty),
-                               path.sum(-1).to(torch.int32), rtol=0, atol=0)
-    fm = mas_kernel.mas_path(v.transpose(1, 2).contiguous().transpose(1, 2),
-                             tx, ty, frame_major=True)
-    torch.testing.assert_close(fm, path.transpose(1, 2), rtol=0, atol=0)
+                               want.sum(-1).to(torch.int32), rtol=0, atol=0)
+    fm = mas_kernel.mas_path(fm_view, tx, ty, frame_major=True)
+    torch.testing.assert_close(fm, want.transpose(1, 2), rtol=0, atol=0)
+    bits = mas_kernel.mas_bits(v, tx, ty)
+    torch.testing.assert_close(
+        bits, mas_kernel.mas_bits(v.cpu(), tx.cpu(), ty.cpu()).to(cuda),
+        rtol=0, atol=0)
+    assert torch.equal(mas_kernel.mas_bits(fm_view, tx, ty), bits)
+    foreign = bits * 3
+    foreign[:, :, 0] = 1
+    for given in (bits, foreign):
+        torch.testing.assert_close(mas_kernel.mas_backtrack(given, tx, ty),
+                                   want, rtol=0, atol=0)
+        torch.testing.assert_close(
+            mas_kernel.mas_backtrack(given, tx, ty, frame_major=True),
+            want.transpose(1, 2), rtol=0, atol=0)
 
 
 TWO_PASS_ROUTES = {"cmp": {}, "stage": {"form": "stage"},
@@ -338,14 +418,15 @@ def test_cuda_two_pass_path_never_runs_plain(cuda, monkeypatch):
 
 @pytest.fixture
 def alphas_prefilled_with_nan(monkeypatch):
-    """H2 writes into an output pre-filled with NaN, so a cell it leaves
-    unwritten shows."""
+    """H2 and H5 write into an output pre-filled with NaN, so a cell they
+    leave unwritten shows."""
     alphas_out = forward_sum_kernel._alphas_out
 
     def prefilled(*args):
         return alphas_out(*args).fill_(float("nan"))
 
     monkeypatch.setattr(forward_sum_kernel, "_alphas_out", prefilled)
+    monkeypatch.setattr(skip_dp_kernel, "_alphas_out", prefilled)
 
 
 # Alpha sweeps: ragged batches (item 0 at t_y = 1); every item at
@@ -550,6 +631,51 @@ def test_skip_sweep_kernels_match_plain(cuda, gamma_prefilled_with_nan,
     torch.testing.assert_close(
         x.grad, -want.transpose(0, 1) * valid[:, None, None], rtol=1e-5,
         atol=1e-6)
+
+
+def skip_alpha_inputs(seed, B, T_x, T_y):
+    """A skip lattice [T_y, B, 2*T_x+1] of log-softmax rows, NEG-masked
+    past each item's states, with the edge items of chip_smoke.py's
+    `skip_fs_inputs`: t_y = 1; t_x > t_y; t_x = 0; a NEG band around the
+    diagonal; a fully dead frame; -inf inputs (clamped to NEG)."""
+    rng = np.random.default_rng(seed)
+    T_s = 2 * T_x + 1
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal(
+        (B, T_y, T_s)).astype(np.float32) * 3), -1).numpy()
+    t_x = rng.integers(1, T_x + 1, B).astype(np.int32)
+    t_y = np.maximum(t_x, rng.integers(1, T_y + 1, B)).astype(np.int32)
+    t_x[0], t_y[0] = 1, 1
+    t_x[1], t_y[1] = T_x, max(T_x // 2, 1)
+    t_x[2] = 0
+    center = np.arange(T_y)[:, None] * (2 * t_x[3] + 1) // t_y[3]
+    lp[3] = np.where(np.abs(np.arange(T_s)[None, :] - center) <= 3, lp[3],
+                     skip_dp_kernel.NEG)
+    lp[4, t_y[4] // 2, :] = skip_dp_kernel.NEG
+    lp[5] = np.where(rng.random((T_y, T_s)) < 0.1, -np.inf, lp[5])
+    return lp, t_x, t_y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [0.0, -1.2, 0.6])
+@pytest.mark.parametrize("seed,B,T_x,T_y,layout", [
+    (40, 8, 12, 70, "ragged"), (41, 6, 128, 300, "ragged"),
+    (42, 6, 520, 400, "ragged"), (43, 6, 40, 61, "state")])
+def test_skip_alpha_kernel_matches_plain(cuda, alphas_prefilled_with_nan,
+                                         seed, B, T_x, T_y, layout, cost):
+    """H5's whole alpha lattice, frozen frames included, written over NaN,
+    within rtol 1e-5 / atol 1e-6 of alpha_skip_plain with the edge items,
+    at T_s = 1041 (two cells a thread) and with a strided state axis; the
+    final column equal to the last frame."""
+    lp, t_x, t_y = skip_alpha_inputs(seed, B, T_x, T_y)
+    t_x, t_y = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
+    lp_tm = _masked_logp(torch.from_numpy(lp).to(cuda),
+                         skip_dp.n_states(t_x)).transpose(0, 1)
+    if layout == "state":
+        lp_tm = x_strided(lp_tm)
+    alphas, final = skip_dp_kernel.forward_sum_skip_alpha(lp_tm, t_y, cost)
+    want = skip_dp_kernel.alpha_skip_plain(lp_tm, t_y, cost)
+    torch.testing.assert_close(alphas, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(final, alphas[-1])
 
 
 @pytest.mark.cuda

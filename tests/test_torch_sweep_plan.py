@@ -1,7 +1,7 @@
-"""The launch plan of the posterior sweeps H3 and H6
-(`ops/forward_sum_kernel.py:_sweep_plan`), checked on the CPU: what the
-card would refuse, or what would leave a cell unswept, shows here before
-any launch.
+"""The launch plan of the posterior sweeps H3 and H6 and the forward
+sweeps H2 and H5 (`ops/forward_sum_kernel.py:_sweep_plan`), checked on
+the CPU: what the card would refuse, or what would leave a cell
+unswept, shows here before any launch.
 
     python -m pytest -q tests/test_torch_sweep_plan.py
 """
@@ -12,6 +12,7 @@ import pytest
 
 from aligner_tpu_torch.ops.forward_sum_kernel import (MAX_THREADS,
                                                       SWEEP_PLANS,
+                                                      _forward_smem,
                                                       _sweep_plan)
 
 MAX_SMEM = 232448            # a block's opt-in shared memory on the H100
@@ -39,6 +40,17 @@ def test_plan_covers_the_column_within_the_card(T):
     index = SWEEP_PLANS.index((cells, ring))
     assert index == 0 or SWEEP_PLANS[index - 1][0] * MAX_THREADS < T
     assert (threads - 32) * cells < T
+
+
+@pytest.mark.parametrize("pad", [1, 2])
+@pytest.mark.parametrize("T", WIDTHS)
+def test_forward_layout_fits_at_every_width(T, pad):
+    """H2 (one pad cell) and H5 (two, for the skip arm's s - 2) take the
+    same plan and hold one lp row a slot: their layout fits too."""
+    threads, cells, ring, smem = _sweep_plan(T)
+    pitch = threads * cells
+    assert _forward_smem(pitch, ring, pad) \
+        == 4 * (ring * pitch + 2 * (pitch + pad)) <= smem <= MAX_SMEM
 
 
 @pytest.mark.parametrize("T", (1, 128, 257, 1041))

@@ -61,15 +61,16 @@ _SIGNATURES = {
     "mobo_alpha_launch": [_P, _I64, _I64, _I64, _P, _P, _I32, _I32, _I32,
                           _I32, _I32, _I32, _P],
     "mobo_bp_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I32, _I32,
-                       _I32, _I32, _P],
+                       _I32, _I32, _I32, _I32, _P],
     "mobo_beta_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I32, _I32,
                          _I32, _I32, _I32, _P],
     "mas_walk_stage_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                               _I32, _P],
     "mas_walk_idx_launch": [_P, _P, _P, _P, _I32, _I32, _I32, _P],
     "mas_expand_launch": [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
-    "mas_bits_chains_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I32,
-                               _I32, _I32, _F32, _P],
+    "mas_bits_chains_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I32,
+                               _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                               _I32, _F32, _P],
     "mas_walk_chains_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                                _I32, _I32, _P],
 }

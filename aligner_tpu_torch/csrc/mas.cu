@@ -47,15 +47,11 @@
 //   floats a store along whichever axis has stride 1. The output needs no
 //   zero fill. Durations: the walk writes each token's run once and the
 //   other threads write 0 past t_x.
-// * Values fetched ahead by cp.async into a ring in shared memory: rows
-//   (each thread its own cells of frame y + RING - 1) where the tokens are
-//   contiguous, tiles of 8 frames x 4 tokens a warp instruction where the
-//   frames are (serving's natural [B, T_x, T_y] lattice; a row would touch
-//   32 lines a warp).
-// * A frame step of one basic block: frame 0 peeled, a pad cell of
-//   max_neg_val left of each column (the x == 0 arm), the x == y arm a
-//   select, columns padded to threads x CELLS cells, only y < t_y on the
-//   chain.
+// * The forward sweep of csrc/mas_forward.cuh, which H13 shares: values
+//   fetched ahead by cp.async into a ring in shared memory, in rows where
+//   the tokens are contiguous and in tiles of 8 frames x 4 tokens where
+//   the frames are (serving's natural [B, T_x, T_y] lattice); a frame step
+//   of one basic block; only y < t_y on the chain.
 // The wrapper's plan (ops/mas_kernel.py: _mas_plan, from the shape and
 // strides, before the launch) gives threads, cells, ring, fetch and where
 // the plane lives. A column wider than the widest plan (8192 tokens) takes
@@ -66,43 +62,25 @@
 // The kernel also runs as either half alone, for the two-pass route
 // (mas_pallas_bits_nat + mas_pallas_backtrack_nat, form="cmp"): with
 // `bits` given and no `path` or `durations`, the sweep writes every byte
-// of uint8 [B, T_y, T_x] from the plane (0 off the band), four bytes a
-// store along x; with no `value`, it first loads the given bytes into the
+// of uint8 [B, T_y, T_x] from the plane (0 off the band), sixteen bytes a
+// store along x where T_x allows it (write_bits in csrc/mas_forward.cuh);
+// with no `value`, it first loads the given bytes into the
 // plane (a ballot of byte != 0 a warp) and walks from there.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
+#include "mas_forward.cuh"
 #include "posterior_sweep.cuh"
 
 namespace {
 
-constexpr int TILE = 8;  // frames of a tile: 8 frames x 4 tokens a warp
-enum Fetch { FETCH_ROWS = 0, FETCH_TILES = 1, FETCH_WIDE = 2 };
-
-// Shared memory of H1 whose threads hold `pitch` cells: the plane of
-// `plane_frames` frames (0 when it lives in device memory), RING value rows
-// of pitch + 4 floats, two columns behind a pad cell each, and the walk's
-// token a frame (int16) when the plane is shared.
+// Shared memory of H1 whose threads hold `pitch` cells: the forward's (the
+// plane of `plane_frames` frames, 0 when it lives in device memory, the
+// ring and the columns), and the walk's token a frame (int16) when the
+// plane is shared.
 inline size_t mas_smem(int pitch, int ring, int plane_frames) {
-  return static_cast<size_t>(plane_frames) * (pitch / 32) * sizeof(unsigned) +
-         (static_cast<size_t>(ring) * (pitch + 4) + 2 * (pitch + 1)) *
-             sizeof(float) +
+  return forward_smem(pitch, ring, plane_frames) +
          static_cast<size_t>(plane_frames) * sizeof(short);
-}
-
-// 32-bit words of an item's device-memory scratch: the plane, then the
-// walk's tokens as int16.
-__host__ __device__ inline long long item_words(int T_y, int W) {
-  return static_cast<long long>(T_y) * W + (T_y + 1) / 2;
-}
-
-template <bool SHARED, class T>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (SHARED)
-    return *p;
-  else
-    return __ldcg(p);  // device memory: from L2, where this launch wrote it
 }
 
 // The walk of one valid item, by one thread: visit(y, index, step) for
@@ -180,41 +158,6 @@ __device__ void write_path(float* p, long long sp_x, long long sp_y,
       const int x = y_inner ? o : i;
       const int y = y_inner ? i : o;
       p[x * sp_x + y * sp_y] = load<SHARED>(token + y) == x ? 1.f : 0.f;
-    }
-  }
-}
-
-// Every byte of the item's bits [T_y, T_x]: the plane's bit on the band
-// of a valid item, else 0; four bytes a store where T_x allows it.
-template <bool SHARED>
-__device__ void write_bits(const unsigned* planes, int W, int tx, int top,
-                           int ty, uint8_t* bits, int T_x, int T_y) {
-  auto bit = [&](int y, int x, unsigned word) -> unsigned {
-    const bool band = x < tx && x <= y && x >= tx - (ty - y);
-    return band ? (word >> (x & 31)) & 1u : 0u;
-  };
-  if (T_x % 4 == 0) {
-    const int groups = T_x / 4;
-    for (int g = threadIdx.x; g < T_y * groups; g += blockDim.x) {
-      const int y = g / groups;
-      const int x = 4 * (g - y * groups);
-      unsigned out = 0;
-      if (y < top) {
-        const unsigned word = load<SHARED>(
-            planes + static_cast<long long>(y) * W + (x >> 5));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out |= bit(y, x + j, word) << (8 * j);
-      }
-      reinterpret_cast<unsigned*>(bits)[g] = out;
-    }
-  } else {
-    for (int g = threadIdx.x; g < T_y * T_x; g += blockDim.x) {
-      const int y = g / T_x;
-      const int x = g - y * T_x;
-      bits[g] = y < top ? bit(y, x, load<SHARED>(
-                                        planes + static_cast<long long>(y) *
-                                                     W + (x >> 5)))
-                        : 0;
     }
   }
 }
@@ -304,8 +247,9 @@ __device__ void finish(const unsigned* planes, int W, short* token,
                        float* path, long long sp_x, long long sp_y,
                        int* durations, int T_x, int T_y) {
   const int top = valid ? ty : 0;  // the frames that emit
-  if (bits != nullptr) write_bits<SHARED>(planes, W, tx, top, ty, bits, T_x,
-                                          T_y);
+  if (bits != nullptr)
+    write_bits<SHARED>(planes, W, tx, top, ty, bits, T_x, T_y,
+                       BlockGroup{});
   if (durations != nullptr) {
     for (int x = (valid ? tx : 0) + threadIdx.x; x < T_x; x += blockDim.x)
       durations[x] = 0;
@@ -340,8 +284,6 @@ __global__ void __launch_bounds__(1024) mas_kernel(
     uint8_t* __restrict__ bits, float* __restrict__ path, long long sp_b,
     long long sp_x, long long sp_y, int* __restrict__ durations,
     unsigned* __restrict__ scratch, int T_x, int T_y, float max_neg_val) {
-  static_assert((RING & (RING - 1)) == 0 && RING >= 2, "a power of 2");
-  static_assert(!TILES || RING >= 3 * TILE, "tiles fetched 2 tiles ahead");
   extern __shared__ unsigned smem_words[];
   const int b = blockIdx.x;
   const int tx = t_x[b];
@@ -349,110 +291,23 @@ __global__ void __launch_bounds__(1024) mas_kernel(
   const bool valid = tx >= 1 && tx <= ty && tx <= T_x && ty <= T_y;
 
   const int P = blockDim.x * CELLS;  // the pitch of a column
-  const int Q = P + 4;               // the pitch of a ring row
   const int W = P / 32;              // plane words a frame
-  const int warps = blockDim.x / 32;
-  const int lane = threadIdx.x % 32;
   // Frame y's bit at cell c: bit c % 32 of planes[y * W + c / 32].
   unsigned* const planes =
       SHARED_PLANES ? smem_words : scratch + b * item_words(T_y, W);
   float* const ring = reinterpret_cast<float*>(
       smem_words + (SHARED_PLANES ? static_cast<size_t>(T_y) * W : 0));
-  float* prev = ring + RING * Q + 1;  // cum[., y - 1], a pad cell at -1
-  float* cur = prev + P + 1;
+  float* const cols = ring + RING * (P + 4);
   short* const token = SHARED_PLANES
-                           ? reinterpret_cast<short*>(cur + P)
+                           ? reinterpret_cast<short*>(cols + 2 * (P + 1))
                            : reinterpret_cast<short*>(
                                  planes + static_cast<long long>(T_y) * W);
   const long long item = static_cast<long long>(b) * T_y * T_x;
 
   if (value != nullptr && valid) {
-    int cell[CELLS];
-    bool pos[CELLS];     // x > 0: the only cells that can step
-    int tile_x[CELLS];   // tiles: this lane's token in sub-tile 0
-    const float* v_at[CELLS];  // this lane's next value to copy
-    const int tile_f = lane % TILE;  // tiles: this lane's frame in a tile
-#pragma unroll
-    for (int k = 0; k < CELLS; ++k) {
-      cell[k] = threadIdx.x + k * blockDim.x;
-      pos[k] = cell[k] > 0;
-      tile_x[k] = 32 * (threadIdx.x / 32 + k * warps) + lane / TILE;
-      v_at[k] = value + b * sv_b +
-                (TILES ? tile_x[k] * sv_x + tile_f * sv_y : cell[k] * sv_x);
-    }
-    // The copies started at frame y's step, one commit group, none past
-    // frame t_y - 1 or token t_x - 1; as H4's (csrc/skip_dp.cu). Rows:
-    // each thread its own cells of frame y + RING - 1. Tiles: each warp
-    // sub-tile y % TILE of the tile of frames two tiles ahead, lane l at
-    // token 4 * (y % TILE) + l / TILE of its 32 and frame l % TILE.
-    const long long next_sub = 4 * sv_x;
-    const long long next_tile = TILE * sv_y - (32 - 4) * sv_x;
-    auto fetch = [&](int y) {
-      if (TILES) {
-        const int j = y & (TILE - 1);
-        const int f = ((y >> 3) + 2) * TILE + tile_f;
-#pragma unroll
-        for (int k = 0; k < CELLS; ++k) {
-          const int x = tile_x[k] + 4 * j;
-          float* const dst = ring + (f & (RING - 1)) * Q + x;
-          if (f < ty && x < tx) cp_async4(dst, v_at[k]);
-          v_at[k] += j == TILE - 1 ? next_tile : next_sub;
-        }
-      } else {
-        const int f = y + RING - 1;
-#pragma unroll
-        for (int k = 0; k < CELLS; ++k) {
-          if (f < ty && cell[k] < tx)
-            cp_async4(ring + (f & (RING - 1)) * Q + cell[k], v_at[k]);
-          v_at[k] += sv_y;
-        }
-      }
-      cp_async_commit();
-    };
-    for (int y = TILES ? -2 * TILE : 1 - RING; y < 0; ++y) fetch(y);
-    if (threadIdx.x == 0) {  // the x == 0 arm after frame 0
-      prev[-1] = max_neg_val;
-      cur[-1] = max_neg_val;
-    }
-    // Tiles: every thread's copies of frames 0..2*TILE-1 have landed, and
-    // the barrier shows them to all. Rows: this thread's frame 0.
-    cp_async_wait<TILES ? 0 : RING - 2>();
-    if (TILES) __syncthreads();
-    const float* row = ring;  // frame y's ring row
-    auto next_frame = [&](int y) {
-      fetch(y);
-      row = ring + ((y + 1) & (RING - 1)) * Q;
-      float* const t = prev;
-      prev = cur;
-      cur = t;
-      // Frame y + 1 has landed: rows, this thread's copy; tiles, every
-      // copy started at step y - TILE or before, shown by the barrier.
-      cp_async_wait<TILES ? TILE : RING - 2>();
-      __syncthreads();
-    };
-
-    // Frame 0: the column before it is 0 and no cell steps.
-#pragma unroll
-    for (int k = 0; k < CELLS; ++k) {
-      const int c = cell[k];
-      cur[c] = fmaxf(c == 0 ? max_neg_val : 0.f, 0.f) + row[c];
-      if (lane == 0) planes[threadIdx.x / 32 + k * warps] = 0u;
-    }
-    next_frame(0);
-    for (int y = 1; y < ty; ++y) {
-      unsigned* const words = planes + static_cast<long long>(y) * W;
-#pragma unroll
-      for (int k = 0; k < CELLS; ++k) {
-        const int c = cell[k];
-        const float p = prev[c];
-        const float ps = prev[c - 1];
-        const bool diag = c == y;
-        cur[c] = fmaxf(diag ? max_neg_val : p, ps) + row[c];
-        const unsigned word = __ballot_sync(~0u, pos[k] && (diag || p < ps));
-        if (lane == 0) words[threadIdx.x / 32 + k * warps] = word;
-      }
-      next_frame(y);
-    }
+    mas_forward<CELLS, RING, TILES>(value + b * sv_b, sv_x, sv_y, tx, ty,
+                                    planes, ring, cols, max_neg_val,
+                                    BlockGroup{});
   } else if (value == nullptr && valid) {
     load_planes<SHARED_PLANES>(bits + item, planes, W, tx, ty, T_x);
   }
@@ -529,48 +384,6 @@ __global__ void __launch_bounds__(1024) mas_wide_kernel(
                     ? durations + static_cast<long long>(b) * T_x
                     : nullptr,
                 T_x, T_y);
-}
-
-template <int C, int R, bool S, bool T>
-struct MasPlan {
-  static constexpr int cells = C;
-  static constexpr int ring = R;
-  static constexpr bool shared = S;
-  static constexpr bool tiles = T;
-};
-
-// f(MasPlan<cells, ring, shared, tiles>{}) for the plans of
-// ops/mas_kernel.py: MAS_PLANS; any other is refused.
-template <class F>
-cudaError_t with_mas_plan(int cells, int ring, bool shared, bool tiles,
-                          F f) {
-  if (cells == 1 && ring == 32 && shared && tiles)
-    return f(MasPlan<1, 32, true, true>{});
-  if (cells == 1 && ring == 32 && !shared && tiles)
-    return f(MasPlan<1, 32, false, true>{});
-  if (cells == 1 && ring == 8 && shared && !tiles)
-    return f(MasPlan<1, 8, true, false>{});
-  if (cells == 1 && ring == 4 && shared && !tiles)
-    return f(MasPlan<1, 4, true, false>{});
-  if (cells == 1 && ring == 8 && !shared && !tiles)
-    return f(MasPlan<1, 8, false, false>{});
-  if (cells == 2 && ring == 8 && shared && !tiles)
-    return f(MasPlan<2, 8, true, false>{});
-  if (cells == 2 && ring == 4 && shared && !tiles)
-    return f(MasPlan<2, 4, true, false>{});
-  if (cells == 2 && ring == 8 && !shared && !tiles)
-    return f(MasPlan<2, 8, false, false>{});
-  if (cells == 4 && ring == 8 && shared && !tiles)
-    return f(MasPlan<4, 8, true, false>{});
-  if (cells == 4 && ring == 4 && shared && !tiles)
-    return f(MasPlan<4, 4, true, false>{});
-  if (cells == 4 && ring == 8 && !shared && !tiles)
-    return f(MasPlan<4, 8, false, false>{});
-  if (cells == 8 && ring == 4 && shared && !tiles)
-    return f(MasPlan<8, 4, true, false>{});
-  if (cells == 8 && ring == 4 && !shared && !tiles)
-    return f(MasPlan<8, 4, false, false>{});
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -37,34 +37,25 @@
 //  - the split form moves the walk into a kernel that writes four bytes
 //    per frame, and the path into a kernel with no carry at all, which is
 //    bounded by the bytes of the path alone;
-//  - the K-chain kernels put K items into one block: K columns advance per
-//    __syncthreads in the forward, K load chains are in flight per block in
-//    the walk (one per warp, so that they do not serialise in one warp).
-//    They trade blocks for warps: B / K blocks instead of B.
+//  - the K-chain walk puts K items into one block: K load chains in
+//    flight per block (one per warp, so that they do not serialise in one
+//    warp), B / K blocks instead of B;
+//  - the K-chain forward runs K of H1's forward chains a block
+//    (csrc/mas_forward.cuh), each over its own item behind its own named
+//    barrier, so that no chain waits for a longer item; its bits go into a
+//    ballot plane of its own, and every byte is written from the plane, so
+//    the output needs no zero fill. K chains share one SM's schedulers and
+//    load/store unit, so a chain runs as H1 does with K items to an SM.
 //
-// Measured by chip_smoke.py phase 7 (CUDA events, wrapper and output
-// allocation included) on an NVIDIA H100 80GB HBM3, 700.00 W, ragged
-// 128x1024; each figure is the range over three runs of the script, at
-// B=32 and then at B=256:
-//   staged walk               0.174-0.180    0.410-0.417 ms
-//   index walk                0.155-0.163    0.163-0.172 ms
-//   expand                    0.029-0.036    0.050-0.053 ms
-//   forward, 2 chains         0.261-0.265    0.359-0.364 ms
-//   forward, 4 chains         0.380-0.387    0.426-0.432 ms
-//   walk, 2 chains            0.167-0.174    0.421-0.427 ms
-//   walk, 4 chains            0.165-0.172    0.420-0.426 ms
-// H1's own halves (csrc/mas.cu, its bits in a shared-memory plane) are
-// faster than each of these; PERF.md has their times.
-// The expand kernel at B=32 reads the host's launch overhead, not the card
-// (one `torch.eq` into a float32 output takes 0.022 ms there), and moves
-// 2.6 TB/s at B=256, where that call takes 0.136 ms. So K items per block
-// lose in the forward (a barrier over K times the warps, K columns' loads
-// from one SM) and gain little in the walk; whole-tile writes save the fill
-// and no more; and a walk that also streams the path through the L2 loses
-// its bits from it at B=256 (path 134 MB, bits 32 MB, L2 50 MB), which the
-// index walk does not.
+// Times: PERF.md (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3). The
+// expand kernel at B=32 reads the host's launch overhead, not the card;
+// whole-tile writes save the fill and no more; and a walk that also
+// streams the path through the L2 loses its bits from it at B=256 (path
+// 134 MB, bits 32 MB, L2 50 MB), which the index walk does not.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mas_forward.cuh"
 
 namespace {
 
@@ -199,63 +190,97 @@ __global__ void mas_expand_kernel(const int* __restrict__ idx,
   }
 }
 
-// K-chain forward. Block j advances the columns of items c * B/K + j,
-// c = 0..K-1, one frame per step: blockDim.x / K threads (whole warps) per
-// item, striding over its token rows, and one __syncthreads per frame for
-// all K columns. The K items differ in length, so the block runs to the
-// longest valid one and threads of finished or invalid items only meet the
-// barrier. Same arithmetic and the same band mask as mas.cu.
-__global__ void mas_bits_chains_kernel(const float* __restrict__ value,
-                                       long long sv_b, long long sv_x,
-                                       long long sv_y,
-                                       const int* __restrict__ t_x,
-                                       const int* __restrict__ t_y,
-                                       uint8_t* __restrict__ bits, int B,
-                                       int T_x, int T_y, int chains,
-                                       float max_neg_val) {
-  extern __shared__ float cols[];  // per chain, two columns of T_x floats
+// K-chain forward. Block j sweeps items c * B/K + j, c = 0..K-1: chain c
+// is a group of `per` threads (whole warps) that runs H1's forward
+// (csrc/mas_forward.cuh) over its own item behind its own named barrier
+// 1 + c, to its own t_y, its decision bits in a ballot plane of its own
+// (in shared memory where K planes fit, else in the device-memory scratch
+// [B, item_words]); then it writes every byte of its item's [T_y, T_x]
+// from the plane (write_bits), 0 off the band and on an invalid item.
+template <int CELLS, int RING, bool SHARED_PLANES, bool TILES>
+__global__ void __launch_bounds__(1024) mas_bits_chains_kernel(
+    const float* __restrict__ value, long long sv_b, long long sv_x,
+    long long sv_y, const int* __restrict__ t_x, const int* __restrict__ t_y,
+    uint8_t* __restrict__ bits, unsigned* __restrict__ scratch, int B,
+    int T_x, int T_y, int chains, float max_neg_val) {
+  extern __shared__ unsigned smem_words[];
   const int per = blockDim.x / chains;
   const int c = threadIdx.x / per;
-  const int lane = threadIdx.x % per;
-  const int stride_b = B / chains;
-  const int b = c * stride_b + blockIdx.x;
+  const int b = c * (B / chains) + blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
   const bool valid = valid_item(tx, ty, T_x, T_y);
-  int steps = 0;
-  for (int k = 0; k < chains; ++k) {
-    const int bk = k * stride_b + blockIdx.x;
-    if (valid_item(t_x[bk], t_y[bk], T_x, T_y)) steps = max(steps, t_y[bk]);
-  }
+  const int P = per * CELLS;
+  const int W = P / 32;
+  unsigned* const own = smem_words + c * (forward_smem(
+                                              P, RING,
+                                              SHARED_PLANES ? T_y : 0) /
+                                          sizeof(unsigned));
+  unsigned* const planes =
+      SHARED_PLANES ? own : scratch + b * item_words(T_y, W);
+  float* const ring = reinterpret_cast<float*>(
+      own + (SHARED_PLANES ? static_cast<size_t>(T_y) * W : 0));
+  const ChainGroup chain{1 + c, static_cast<unsigned>(c * per),
+                         static_cast<unsigned>(per)};
+  if (valid)
+    mas_forward<CELLS, RING, TILES>(value + b * sv_b, sv_x, sv_y, tx, ty,
+                                    planes, ring, ring + RING * (P + 4),
+                                    max_neg_val, chain);
+  chain.sync();
+  write_bits<SHARED_PLANES>(planes, W, tx, valid ? ty : 0, ty,
+                            bits + static_cast<long long>(b) * T_y * T_x,
+                            T_x, T_y, chain);
+}
 
+// The K-chain forward over columns wider than a chain's plans: chain c's
+// threads stride its item's column, two unpadded columns of T_x floats in
+// shared memory, values loaded after the chain's barrier, each byte stored
+// as it is decided; then the frames the sweep did not reach are written 0.
+__global__ void __launch_bounds__(1024) mas_bits_chains_wide_kernel(
+    const float* __restrict__ value, long long sv_b, long long sv_x,
+    long long sv_y, const int* __restrict__ t_x, const int* __restrict__ t_y,
+    uint8_t* __restrict__ bits, int B, int T_x, int T_y, int chains,
+    float max_neg_val) {
+  extern __shared__ float cols[];
+  const int per = blockDim.x / chains;
+  const int c = threadIdx.x / per;
+  const int tid = threadIdx.x - c * per;
+  const int b = c * (B / chains) + blockIdx.x;
+  const int tx = t_x[b];
+  const int ty = t_y[b];
+  const bool valid = valid_item(tx, ty, T_x, T_y);
+  const ChainGroup chain{1 + c, static_cast<unsigned>(c * per),
+                         static_cast<unsigned>(per)};
   const float* v = value + b * sv_b;
   uint8_t* bits_b = bits + static_cast<long long>(b) * T_y * T_x;
   float* prev = cols + 2 * static_cast<long long>(c) * T_x;
   float* cur = prev + T_x;
-
   if (valid) {
-    for (int x = lane; x < tx; x += per) prev[x] = 0.f;
-  }
-  __syncthreads();
-
-  for (int y = 0; y < steps; ++y) {
-    if (valid && y < ty) {
+    for (int x = tid; x < tx; x += per) prev[x] = 0.f;
+    chain.sync();
+    for (int y = 0; y < ty; ++y) {
       const int lo = tx - (ty - y);
-      for (int x = lane; x < tx; x += per) {
-        const float p = prev[x];
-        const float ps = x > 0 ? prev[x - 1] : 0.f;
-        const float v_cur = (x == y) ? max_neg_val : p;
-        const float v_prev = (x == 0) ? (y == 0 ? 0.f : max_neg_val) : ps;
-        cur[x] = fmaxf(v_cur, v_prev) + v[x * sv_x + y * sv_y];
-        bits_b[static_cast<long long>(y) * T_x + x] =
-            (x > 0) && (x <= y) && (x >= lo) && ((x == y) || (p < ps));
+      for (int x = tid; x < T_x; x += per) {
+        uint8_t bit = 0;
+        if (x < tx) {
+          const float p = prev[x];
+          const float ps = x > 0 ? prev[x - 1] : 0.f;
+          const float v_cur = (x == y) ? max_neg_val : p;
+          const float v_prev = (x == 0) ? (y == 0 ? 0.f : max_neg_val) : ps;
+          cur[x] = fmaxf(v_cur, v_prev) + v[x * sv_x + y * sv_y];
+          bit = (x > 0) && (x <= y) && (x >= lo) && ((x == y) || (p < ps));
+        }
+        bits_b[static_cast<long long>(y) * T_x + x] = bit;
       }
+      chain.sync();
+      float* t = prev;
+      prev = cur;
+      cur = t;
     }
-    __syncthreads();
-    float* t = prev;
-    prev = cur;
-    cur = t;
   }
+  for (long long g = static_cast<long long>(valid ? ty : 0) * T_x + tid;
+       g < static_cast<long long>(T_y) * T_x; g += per)
+    bits_b[g] = 0;
 }
 
 // K-chain walk. Block j walks items c * B/K + j, c = 0..K-1, lane 0 of
@@ -325,33 +350,51 @@ extern "C" int mas_expand_launch(const int* idx, float* path, long long sp_b,
 }
 
 // value: f32 lattice read as [B, T_x, T_y] through element strides sv_*;
-// bits: zero-filled (cells off the band, at x >= t_x or y >= t_y, and of
-// invalid items are not written). chains is 1, 2 or 4 and divides B.
-extern "C" int mas_bits_chains_launch(const float* value, long long sv_b,
-                                      long long sv_x, long long sv_y,
-                                      const int* t_x, const int* t_y,
-                                      uint8_t* bits, int B, int T_x, int T_y,
-                                      int chains, float max_neg_val,
-                                      void* stream) {
-  if ((chains != 1 && chains != 2 && chains != 4) || B % chains != 0) {
+// bits: uninitialised, every byte is written; scratch: int32 [B, T_y *
+// threads * cells / 32 + (T_y + 1) / 2], the planes when they do not live
+// in shared memory (else unused). chains is 1, 2 or 4 and divides B;
+// threads (a chain's), cells, ring, shared_planes and fetch (0 rows, 1
+// tiles, 2 the wide kernel) are the wrapper's plan (ops/mas_kernel.py:
+// _chains_plan). Returns cudaErrorInvalidValue for a plan that was not
+// built or does not cover the column.
+extern "C" int mas_bits_chains_launch(
+    const float* value, long long sv_b, long long sv_x, long long sv_y,
+    const int* t_x, const int* t_y, uint8_t* bits, void* scratch, int B,
+    int T_x, int T_y, int chains, int threads, int cells, int ring,
+    int shared_planes, int fetch, float max_neg_val, void* stream) {
+  if ((chains != 1 && chains != 2 && chains != 4) || B % chains != 0 ||
+      threads % 32 != 0 || threads * chains > 1024 ||
+      static_cast<long long>(threads) * cells < T_x)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int most = (1024 / chains) / 32 * 32;  // whole warps per chain
-  const int want = ((T_x + 31) / 32) * 32;
-  const int per = want < most ? want : most;
-  const size_t smem =
-      2 * static_cast<size_t>(chains) * T_x * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mas_bits_chains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  mas_bits_chains_kernel<<<B / chains, per * chains, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      value, sv_b, sv_x, sv_y, t_x, t_y, bits, B, T_x, T_y, chains,
-      max_neg_val);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(B / chains);
+  const dim3 block(threads * chains);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel, size_t smem, auto... args) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, block, smem, s>>>(args...);
+    return cudaGetLastError();
+  };
+  if (fetch == FETCH_WIDE)
+    return static_cast<int>(launch(
+        mas_bits_chains_wide_kernel,
+        2 * static_cast<size_t>(chains) * T_x * sizeof(float), value, sv_b,
+        sv_x, sv_y, t_x, t_y, bits, B, T_x, T_y, chains, max_neg_val));
+  return static_cast<int>(with_mas_plan(
+      cells, ring, shared_planes != 0, fetch == FETCH_TILES, [&](auto plan) {
+        using P = decltype(plan);
+        return launch(
+            mas_bits_chains_kernel<P::cells, P::ring, P::shared, P::tiles>,
+            chains * forward_smem(threads * cells, P::ring,
+                                  P::shared ? T_y : 0),
+            value, sv_b, sv_x, sv_y, t_x, t_y, bits,
+            static_cast<unsigned*>(scratch), B, T_x, T_y, chains,
+            max_neg_val);
+      }));
 }
 
 // path: zero-filled. chains is 1, 2 or 4 and divides B.

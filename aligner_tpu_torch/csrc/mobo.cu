@@ -73,9 +73,19 @@
 //   each with k cells at most; up to three more groups of as many threads
 //   join the z prologue and only pass the block barriers afterwards.
 //
-// H8 keeps its first design: one block per item, threads striding over the
-// T_y1 positions, shifted rows in shared memory with D cells of NEG on
-// either side, z inside the token loop and two barriers per token.
+// H8 runs on the same clusters, with the same z prologue, halo and rows
+// fetched ahead: its token step is one window of compares per cell (a
+// later d replaces only if strictly greater), and it stores each cell's d
+// into the bp output. After one cluster barrier one thread walks, its
+// position crossing the slices, reading the bp output through L2 (__ldcg;
+// a copy of the slices' backpointers as bytes in shared memory, read
+// through distributed shared memory, saved the walk 10 ns a token and
+// cost the sweep more, PERF.md). Where z does not fit in shared memory it
+// lives in the bp rows as float bits, each row read ahead before the
+// chain writes the row's backpointers over it. mobo_bp_wide_kernel, H8's first design (one block per item, z inside the
+// token loop, two barriers per token), takes a slice too wide for the
+// cluster form's shared rows, and a batch of more items than SMs, where it
+// is faster (the wrapper's plan chooses).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -143,7 +153,11 @@ __device__ __forceinline__ void fill_rows(float* rows, int count) {
   for (int k = threadIdx.x; k < count; k += blockDim.x) rows[k] = NEG;
 }
 
-// The hard forward recursion of H8: max/argmax and the backpointers.
+// H8's wide form (its first design), for a slice wider than the cluster
+// form holds and for more items than SMs: one block per item, threads
+// striding over the T_y1 positions, shifted rows in shared memory with D
+// cells of NEG on either side, z inside the token loop, two barriers per
+// token and the walk from device memory.
 __device__ __forceinline__ void bp_sweep(
     const float* __restrict__ e, long long se_x, long long se_b,
     long long se_p, int tx, int* __restrict__ bp, int B, int T_x, int n,
@@ -195,7 +209,7 @@ __device__ __forceinline__ void bp_sweep(
   }
 }
 
-__global__ void __launch_bounds__(1024) mobo_bp_kernel(
+__global__ void __launch_bounds__(1024) mobo_bp_wide_kernel(
     const float* __restrict__ e, long long se_x, long long se_b,
     long long se_p, const int* __restrict__ t_x, const int* __restrict__ t_y,
     int* __restrict__ bp, int* __restrict__ durs, int B, int T_x, int n,
@@ -571,6 +585,107 @@ __global__ void __launch_bounds__(1024) mobo_beta_kernel(
   cluster.sync();  // no block leaves while a neighbour may reach its memory
 }
 
+// Max and argmax over first[0], first[-1], .., first[-(D-1)], d = 1..D
+// ascending, a later d replacing only if strictly greater (the reference's
+// `_window_max_argmax_back`): the window of one cell of H8 on the chain.
+__device__ __forceinline__ void window_max_argmax(const float* first, int D,
+                                                  float* best, int* arg) {
+  float m = first[0];
+  int at = 1;
+#pragma unroll 8
+  for (int d = 2; d <= D; ++d) {
+    const float c = first[1 - d];
+    const bool take = c > m;
+    m = take ? c : m;
+    at = take ? d : at;
+  }
+  *best = m;
+  *arg = at;
+}
+
+// H8 on H7's clusters: the exchange of a_i as H7's, the inner step a max
+// and argmax over the window, each cell's d stored into the bp output.
+// Where z does not fit in shared memory it lives in the bp rows, as float
+// bits: row i's z is fetched ahead before the chain writes row i's
+// backpointers over it. Then one cluster barrier, and one thread walks the
+// bp output through L2, its position crossing the slices.
+__global__ void __launch_bounds__(1024) mobo_bp_kernel(
+    const float* __restrict__ e, long long se_x, long long se_b,
+    long long se_p, const int* __restrict__ t_x, const int* __restrict__ t_y,
+    int* __restrict__ bp, int* __restrict__ durs, int B, int T_x, int n,
+    int D, int C, int w, int z_shared) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Slice s(smem, C, w, n, D, z_shared != 0);
+  const int tx = t_x[s.b];
+  const int live = tx < T_x ? (tx > 0 ? tx : 0) : T_x;
+  const long long row_stride = static_cast<long long>(B) * n;
+  int* out = bp + static_cast<long long>(s.b) * n + s.start;
+  float* z_out = reinterpret_cast<float*>(out);
+  const float* eb = e + s.b * se_b;
+
+  __shared__ unsigned long long bars[4];
+  // Pushed to the right: the last D cells of a_i; read from the left.
+  const Halo halo = make_halo(bars, s.rank + 1 < C ? s.rank + 1 : -1,
+                              s.rank - 1, D);
+  fill_rows(smem, 2 * (w + D));          // block 0's halo stays NEG
+  for (int c = s.c0; c < s.wb; c += s.tc)
+    s.carry[c] = s.start + c ? NEG : 0.f;
+  z_prologue(s, eb, se_x, se_p, live, 0, T_x, n, D, w, z_out, row_stride);
+  cluster.sync();                        // z written, every block running
+
+  const bool reads_halo = halo.from >= 0 && s.c0 < D;
+  if (live > 0)
+    fetch_ahead(s, eb, se_x, se_p, 0, T_x, z_out, row_stride, 0, 0, w);
+  for (int i = 0; i < live; ++i) {
+    const int par = i & 1;
+    cp_async_wait_all();                 // token i's cells have landed
+    const float* z = s.z_shared ? s.z + i * w : s.z + par * w;
+    float* a = s.x(par) + D;
+    for (int c = s.c0; c < s.wb; c += s.tc) {
+      const float zc = z[c];
+      const float ac = zc > DEAD ? s.carry[c] - zc : NEG;
+      a[c] = ac;
+      if (halo.to >= 0 && c >= w - D) {
+        if (c - s.tc < w - D) halo.wait_empty(i);   // first pushed cell
+        halo.push(s.x(par) + c - (w - D), i, ac);
+      }
+    }
+    if (i + 1 < live)
+      fetch_ahead(s, eb, se_x, se_p, i + 1, T_x, z_out, row_stride, i + 1,
+                  par ^ 1, w);
+    // Every cell of a_i is in shared memory, and every thread has left
+    // token i - 1, whose rows of the other parity are written next.
+    __syncthreads();
+    halo.release(i);
+    if (reads_halo) halo.wait_full(i);
+    for (int c = s.c0; c < s.wb; c += s.tc) {
+      float inner;
+      int arg;
+      window_max_argmax(a + c - 1, D, &inner, &arg);
+      float v = s.e(par)[c] + inner;
+      if (!(v > DEAD)) v = NEG;
+      s.carry[c] = v;
+      out[i * row_stride + c] = arg;
+    }
+  }
+  // Tokens >= t_x point nowhere.
+  for (int i = live; i < T_x; ++i)
+    for (int c = s.c0; c < s.wb; c += s.tc) out[i * row_stride + c] = 0;
+  cluster.sync();  // every block's backpointers written, shown to the walker
+  if (s.rank == 0 && threadIdx.x == 0) {
+    const int* item = bp + static_cast<long long>(s.b) * n;
+    int* d_out = durs + static_cast<long long>(s.b) * T_x;
+    int pos = t_y[s.b];
+    for (int i = T_x - 1; i >= 0; --i) {
+      pos = pos < 0 ? 0 : (pos > n - 1 ? n - 1 : pos);
+      const int d = i < tx ? __ldcg(item + i * row_stride + pos) : 0;
+      d_out[i] = d;
+      pos -= d;
+    }
+  }
+}
+
 int block_threads(int n) { return n >= 1024 ? 1024 : ((n + 31) / 32) * 32; }
 
 // Opt in to `smem` bytes of dynamic shared memory where that is above the
@@ -583,30 +698,45 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The launch of H7 or H9 on B clusters of C blocks, each owning w
-// positions, into `config` (which points at `attr`) and `z_shared`.
-// Refuses a plan that breaks the kernels' assumptions: C in 1..8, C*w >= n
-// with every block owning a cell, and w >= D when there is a neighbour.
-template <typename Kernel>
-cudaError_t cluster_config(Kernel kernel, int B, int T_x, int n, int D,
-                           int C, int w, void* stream,
-                           cudaLaunchConfig_t* config,
-                           cudaLaunchAttribute* attr, int* z_shared) {
-  if (C < 1 || C > MAX_CLUSTER || w < 1 ||
-      static_cast<long long>(C) * w < n ||
-      static_cast<long long>(C - 1) * w >= n || (C > 1 && w < D))
-    return cudaErrorInvalidValue;
-  const size_t threads = sweep_threads(w);
-  const size_t rows = (2 + 4 * threads / chain_threads(w)) *
-                          (static_cast<size_t>(w) + D) + 3 * w;
+// Floats of a block's shared rows besides z (Slice): two exchanged rows of
+// w + D, the carried row, two e rows and the z prologue's stage.
+inline size_t slice_floats(int w, int D) {
+  return (2 + 4 * static_cast<size_t>(sweep_threads(w)) / chain_threads(w)) *
+             (static_cast<size_t>(w) + D) +
+         3 * static_cast<size_t>(w);
+}
+
+// Shared bytes of H7, H8 and H9, with z in shared memory where T_x rows of
+// the slice fit there (*z_shared), else two rows fetched ahead from the
+// output.
+inline size_t sweep_smem(int T_x, int w, int D, int* z_shared) {
+  const size_t rows = slice_floats(w, D);
   const size_t z_rows = static_cast<size_t>(T_x) * w;
   *z_shared = (rows + z_rows) * sizeof(float) <= MAX_SMEM;
-  const size_t smem = (rows + (*z_shared ? z_rows : 2 * w)) * sizeof(float);
+  return (rows + (*z_shared ? z_rows : 2 * static_cast<size_t>(w))) *
+         sizeof(float);
+}
+
+// The launch of H7, H8 or H9 on B clusters of C blocks, each owning w
+// positions, with `smem` bytes of shared memory, into `config` (which
+// points at `attr`). Refuses a plan that breaks the kernels' assumptions:
+// C in 1..8, C*w >= n with every block owning a cell, w >= D when there is
+// a neighbour, and the shared memory within a block's.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int B, int n, int D, int C, int w,
+                           size_t smem, void* stream,
+                           cudaLaunchConfig_t* config,
+                           cudaLaunchAttribute* attr) {
+  if (C < 1 || C > MAX_CLUSTER || w < 1 ||
+      static_cast<long long>(C) * w < n ||
+      static_cast<long long>(C - 1) * w >= n || (C > 1 && w < D) ||
+      smem > MAX_SMEM)
+    return cudaErrorInvalidValue;
   const cudaError_t err = opt_in_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   *config = {};
   config->gridDim = dim3(B * C);
-  config->blockDim = dim3(threads);
+  config->blockDim = dim3(sweep_threads(w));
   config->dynamicSmemBytes = smem;
   config->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -632,8 +762,9 @@ extern "C" int mobo_alpha_launch(const float* e, long long se_x,
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   int z_shared;
-  cudaError_t err = cluster_config(mobo_alpha_kernel, B, T_x, T_y1, D, C, w,
-                                   stream, &config, &attr, &z_shared);
+  cudaError_t err = cluster_config(mobo_alpha_kernel, B, T_y1, D, C, w,
+                                   sweep_smem(T_x, w, D, &z_shared), stream,
+                                   &config, &attr);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&config, mobo_alpha_kernel, e, se_x, se_b, se_p,
                              t_x, logB, B, T_x, T_y1, D, C, w, z_shared);
@@ -641,22 +772,37 @@ extern "C" int mobo_alpha_launch(const float* e, long long se_x,
 }
 
 // e, t_x as above; t_y: int32 [B]; bp: int32 [T_x, B, T_y1] contiguous;
-// durs: int32 [B, T_x] contiguous. Returns cudaGetLastError() after the
-// launch.
+// durs: int32 [B, T_x] contiguous; both written whole. C and w: the plan
+// (ops/mobo_kernel.py:_bp_plan); C = 0 takes the wide form, one block per
+// item. Returns the launch's error, else cudaGetLastError() after it.
 extern "C" int mobo_bp_launch(const float* e, long long se_x, long long se_b,
                               long long se_p, const int* t_x, const int* t_y,
                               int* bp, int* durs, int B, int T_x, int T_y1,
-                              int D, void* stream) {
-  // Two rows of n + 2*D floats and one of n.
-  const size_t smem =
-      (3 * static_cast<size_t>(T_y1) + 4 * static_cast<size_t>(D)) *
-      sizeof(float);
-  cudaError_t err = opt_in_smem(mobo_bp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mobo_bp_kernel<<<B, block_threads(T_y1), smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      e, se_x, se_b, se_p, t_x, t_y, bp, durs, B, T_x, T_y1, D);
-  return static_cast<int>(cudaGetLastError());
+                              int D, int C, int w, void* stream) {
+  cudaError_t err;
+  if (C == 0) {
+    // Two rows of n + 2*D floats and one of n.
+    const size_t smem =
+        (3 * static_cast<size_t>(T_y1) + 4 * static_cast<size_t>(D)) *
+        sizeof(float);
+    err = opt_in_smem(mobo_bp_wide_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mobo_bp_wide_kernel<<<B, block_threads(T_y1), smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        e, se_x, se_b, se_p, t_x, t_y, bp, durs, B, T_x, T_y1, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  int z_shared;
+  err = cluster_config(mobo_bp_kernel, B, T_y1, D, C, w,
+                       sweep_smem(T_x, w, D, &z_shared), stream, &config,
+                       &attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&config, mobo_bp_kernel, e, se_x, se_b, se_p,
+                             t_x, t_y, bp, durs, B, T_x, T_y1, D, C, w,
+                             z_shared);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // e, t_x, t_y as above; beta: f32 [T_x, B, T_y1] contiguous; C and w as
@@ -670,8 +816,9 @@ extern "C" int mobo_beta_launch(const float* e, long long se_x,
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   int z_shared;
-  cudaError_t err = cluster_config(mobo_beta_kernel, B, T_x, T_y1, D, C, w,
-                                   stream, &config, &attr, &z_shared);
+  cudaError_t err = cluster_config(mobo_beta_kernel, B, T_y1, D, C, w,
+                                   sweep_smem(T_x, w, D, &z_shared), stream,
+                                   &config, &attr);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&config, mobo_beta_kernel, e, se_x, se_b, se_p,
                              t_x, t_y, beta, B, T_x, T_y1, D, C, w,

@@ -196,13 +196,20 @@ def mas_expand_plain(idx: torch.Tensor, T_x: int) -> torch.Tensor:
     return (tokens == idx[:, None, :]).float()
 
 
-def _mas_smem(pitch: int, ring: int, plane_frames: int) -> int:
-    """H1's shared-memory bytes for threads holding `pitch` cells: the
-    plane of `plane_frames` frames (one 32-bit word per 32 cells a frame),
-    `ring` value rows of pitch + 4 floats, two columns behind a pad cell
-    each and the walk's int16 token a frame (csrc/mas.cu: mas_smem)."""
-    return (4 * (pitch // 32) * plane_frames + 2 * plane_frames
+def _forward_smem(pitch: int, ring: int, plane_frames: int) -> int:
+    """Shared-memory bytes of one forward chain (H1's, or one of H13's K)
+    whose threads hold `pitch` cells: the plane of `plane_frames` frames
+    (one 32-bit word per 32 cells a frame), `ring` value rows of pitch + 4
+    floats and two columns behind a pad cell each
+    (csrc/mas_forward.cuh: forward_smem)."""
+    return (4 * (pitch // 32) * plane_frames
             + 4 * (ring * (pitch + 4) + 2 * (pitch + 1)))
+
+
+def _mas_smem(pitch: int, ring: int, plane_frames: int) -> int:
+    """H1's shared-memory bytes: its forward's and the walk's int16 token
+    a frame (csrc/mas.cu: mas_smem)."""
+    return _forward_smem(pitch, ring, plane_frames) + 2 * plane_frames
 
 
 def _mas_plan(T_x: int, T_y: int, frames_contiguous: bool
@@ -238,6 +245,44 @@ def _mas_plan(T_x: int, T_y: int, frames_contiguous: bool
     return threads, cells, 0, "global", "wide", smem
 
 
+def _chains_plan(T_x: int, T_y: int, K: int, frames_contiguous: bool
+                 ) -> tuple[int, int, int, str, str, int]:
+    """(threads a chain, cells per thread, ring depth, planes, fetch,
+    shared-memory bytes) of H13 with K chains a block: as `_mas_plan`, the
+    first plan of MAS_PLANS (`with_mas_plan` builds them for H13 too) whose
+    cells cover the column with at most MAX_THREADS / K threads a chain,
+    whose fetch suits the lattice and whose K chains' layouts fit a block's
+    shared memory together. A column wider than the widest plan takes
+    fetch "wide" (csrc/mas_two_pass.cu: mas_bits_chains_wide_kernel:
+    threads stride the column, two unpadded columns a chain), as far as K
+    chains' columns fit."""
+    most = MAX_THREADS // K
+    for cells, ring, planes, fetch in MAS_PLANS:
+        if cells * most < T_x or (fetch == "tiles" and not frames_contiguous):
+            continue
+        threads = 32 * -(-T_x // (32 * cells))
+        smem = K * _forward_smem(threads * cells, ring,
+                                 T_y if planes == "shared" else 0)
+        if smem <= MAX_SMEM:
+            return threads, cells, ring, planes, fetch, smem
+    cells = -(-T_x // most)
+    threads = 32 * -(-T_x // (32 * cells))
+    smem = 8 * K * T_x
+    if smem > MAX_SMEM:
+        raise ValueError(f"MAS with {K} chains takes at most "
+                         f"{MAX_SMEM // (8 * K)} tokens, got {T_x}")
+    return threads, cells, 0, "global", "wide", smem
+
+
+def _scratch(B, T_y, pitch, planes, device):
+    """The device-memory planes of H1 or H13 when `planes` is "global":
+    int32 [B, T_y * pitch / 32 + (T_y + 1) // 2] (the plane, then H1's
+    walk's tokens); else an empty tensor."""
+    return torch.empty((B, T_y * pitch // 32 + (T_y + 1) // 2)
+                       if planes == "global" else (0,), dtype=torch.int32,
+                       device=device)
+
+
 def _launch(value, t_x, t_y, bits, path, durations, max_neg_val, shape):
     """One launch of H1 over a [B, T_x, T_y] lattice (`shape`). `value`
     None: the walk alone over `bits`; else the sweep, which writes `bits`
@@ -247,9 +292,7 @@ def _launch(value, t_x, t_y, bits, path, durations, max_neg_val, shape):
     device = (value if value is not None else bits).device
     threads, cells, ring, planes, fetch, _ = _mas_plan(
         T_x, T_y, value is not None and value.stride(2) == 1)
-    scratch = torch.empty(
-        (B, T_y * threads * cells // 32 + (T_y + 1) // 2)
-        if planes == "global" else (0,), dtype=torch.int32, device=device)
+    scratch = _scratch(B, T_y, threads * cells, planes, device)
     lib = _build.load_library()
     sv = value.stride() if value is not None else (0, 0, 0)
     sp = path.stride() if path is not None else (0, 0, 0)
@@ -267,12 +310,10 @@ def _launch(value, t_x, t_y, bits, path, durations, max_neg_val, shape):
     _build.LAUNCHES[KERNEL] += 1
 
 
-def _bits_out(B, T_y, T_x, device, fill):
-    """The decision bits' output, uint8 [B, T_y, T_x]: zero-filled for a
-    kernel that writes only set bits, else uninitialised, for one that
-    writes every byte."""
-    make = torch.zeros if fill else torch.empty
-    return make((B, T_y, T_x), dtype=torch.uint8, device=device)
+def _bits_out(B, T_y, T_x, device):
+    """The decision bits' output, which H1 and H13 write whole:
+    uninitialised uint8 [B, T_y, T_x]."""
+    return torch.empty((B, T_y, T_x), dtype=torch.uint8, device=device)
 
 
 def _durations_out(B, T_x, device):
@@ -302,9 +343,10 @@ def mas_bits(value: torch.Tensor, t_x, t_y, *, chains: int = 1,
     both within the lattice), and 0 on every other cell. The same result
     on either device and for any `chains`.
 
-    chains: K > 1 runs the K-chain forward kernel on a CUDA tensor (K
-    items per block; chain c owns items [c*B/K, (c+1)*B/K)); K must divide
-    B. Counterpart of mas_pallas_bits_nat and mas_pallas_bits_nat_multi,
+    chains: K > 1 runs the K-chain forward kernel on a CUDA tensor (K of
+    H1's forward chains a block, each over its own item; chain c owns items
+    [c*B/K, (c+1)*B/K)), with `_chains_plan`'s launch; K must divide B.
+    Counterpart of mas_pallas_bits_nat and mas_pallas_bits_nat_multi,
     which take no lengths, fill every cell, and lay the bits out as int8
     [T_y_pad, B, T_x].
     """
@@ -315,18 +357,23 @@ def mas_bits(value: torch.Tensor, t_x, t_y, *, chains: int = 1,
         bits = _forward_bits(value, t_x, t_y, float(max_neg_val))
         bits = bits & _valid_items(t_x, t_y, T_x, T_y)[None, :, None]
         return bits.permute(1, 0, 2).to(torch.uint8).contiguous()
-    bits = _bits_out(B, T_y, T_x, value.device, fill=chains > 1)
+    bits = _bits_out(B, T_y, T_x, value.device)
     if not bits.numel():
         return bits
     if chains == 1:
         _launch(value, t_x, t_y, bits, None, None, max_neg_val, value.shape)
         return bits
+    threads, cells, ring, planes, fetch, _ = _chains_plan(
+        T_x, T_y, chains, value.stride(2) == 1)
+    scratch = _scratch(B, T_y, threads * cells, planes, value.device)
     lib = _build.load_library()
     with torch.cuda.device(value.device):
         err = lib.mas_bits_chains_launch(
             value.data_ptr(), *value.stride(), t_x.data_ptr(),
-            t_y.data_ptr(), bits.data_ptr(), B, T_x, T_y, chains,
-            float(max_neg_val), torch.cuda.current_stream().cuda_stream)
+            t_y.data_ptr(), bits.data_ptr(), scratch.data_ptr(), B, T_x, T_y,
+            chains, threads, cells, ring, int(planes == "shared"),
+            FETCHES.index(fetch), float(max_neg_val),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, BITS_CHAINS_KERNEL)
     _build.LAUNCHES[BITS_CHAINS_KERNEL] += 1
     return bits

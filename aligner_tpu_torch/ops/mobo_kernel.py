@@ -28,7 +28,9 @@ positions into slices of w (`_cluster_plan`) and push the D-cell halo of
 each token's row into their neighbour's shared memory, with one block
 barrier per token and no barrier over the cluster; they compute the
 normalizer z for every token before the chain and fetch the next token's
-row ahead (`csrc/mobo.cu` says why). H8 runs one block per item.
+row ahead (`csrc/mobo.cu` says why). H8 runs on the same clusters, with
+a window of compares in place of the inner LSE, and walks its
+backpointers in the same launch across the slices (`_bp_plan`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The walk clamps its position into the grid, which only an
@@ -41,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .mas_kernel import MAX_SMEM
 
 NEG = -1e15
 ALPHA_KERNEL = "mobo_alpha_kernel"
@@ -67,6 +70,51 @@ def _cluster_plan(B: int, n: int, D: int) -> tuple[int, int]:
     C = max(C, min(MAX_CLUSTER, most, -(-n // MAX_SLICE)))
     w = -(-n // C)
     return -(-n // w), w
+
+
+PROLOGUE_GROUPS = 4  # thread groups that compute z (csrc/mobo.cu)
+
+
+def _slice_floats(w: int, D: int) -> int:
+    """Floats of a cluster block's shared rows besides z (csrc/mobo.cu:
+    slice_floats): two exchanged rows of w + D, the carried row, two e
+    rows and the z prologue's stage of four rows of w + D per group of
+    chain threads."""
+    k = -(-w // 1024)                     # cells per chain thread
+    tc = 32 * -(-(-(-w // k)) // 32)      # chain threads
+    groups = max(1, min(1024 // tc, PROLOGUE_GROUPS))
+    return (2 + 4 * groups) * (w + D) + 3 * w
+
+
+def _sweep_smem(T_x: int, w: int, D: int) -> tuple[bool, int]:
+    """(z_shared, shared bytes) of a cluster block of H7, H8 or H9
+    (csrc/mobo.cu: sweep_smem): the slice's rows and z, T_x rows of w in
+    shared memory where they fit, else two rows fetched ahead."""
+    rows = _slice_floats(w, D)
+    z_shared = 4 * (rows + T_x * w) <= MAX_SMEM
+    return z_shared, 4 * (rows + (T_x * w if z_shared else 2 * w))
+
+
+def _bp_plan(B: int, T_x: int, n: int, D: int
+             ) -> tuple[int, int, bool, int]:
+    """(C, w, z_shared, shared bytes) of H8 for B items of T_x tokens, n
+    positions and window D: H7's clusters (`_cluster_plan`), z in shared
+    memory where it fits (else in the bp rows). The wide form, C = 0 (one
+    block per item of threads striding the row, `3 n + 4 D` floats of
+    shared memory: H8's first design), where the slice's rows do not fit,
+    and where there are more items than SMs and it fits: two blocks an
+    SM then keep the card busy, and twice the threads a cell's window
+    beat the cluster form's (1.22 against 1.48 ms at B=256, 1025
+    positions; equal at B=133; PERF.md)."""
+    C, w = _cluster_plan(B, n, D)
+    z_shared, smem = _sweep_smem(T_x, w, D)
+    wide = 4 * (3 * n + 4 * D)
+    if smem <= MAX_SMEM and (B <= SMS or wide > MAX_SMEM):
+        return C, w, z_shared, smem
+    if wide > MAX_SMEM:
+        raise ValueError(f"mobo_bp takes 3 * T_y1 + 4 * D <= "
+                         f"{MAX_SMEM // 4} floats, got T_y1 = {n}, D = {D}")
+    return 0, n, False, wide
 
 
 def _sb(arr: torch.Tensor, d: int) -> torch.Tensor:
@@ -234,22 +282,30 @@ def mobo_alpha(e_tm: torch.Tensor, t_x, D: int) -> torch.Tensor:
     return logB
 
 
+def _bp_outs(T_x, B, n, device):
+    """H8's outputs, which it writes whole: uninitialised backpointers
+    int32 [T_x, B, n] and durations int32 [B, T_x]."""
+    return (torch.empty((T_x, B, n), dtype=torch.int32, device=device),
+            torch.empty((B, T_x), dtype=torch.int32, device=device))
+
+
 def mobo_bp(e_tm: torch.Tensor, t_x, t_y, D: int):
     """(backpointers int32 [T_x, B, T_y1], durations int32 [B, T_x]) of
-    the hard-mode recursion and its walk from position t_y."""
+    the hard-mode recursion and its walk from position t_y, on the card
+    with `_bp_plan`'s launch; both outputs are written whole."""
     t_x, t_y = _check_grid(e_tm, D, t_x=t_x, t_y=t_y)
     if e_tm.device.type == "cpu":
         return mobo_bp_plain(e_tm, t_x, t_y, D)
     T_x, B, n = e_tm.shape
-    bp = torch.empty((T_x, B, n), dtype=torch.int32, device=e_tm.device)
-    durs = torch.empty((B, T_x), dtype=torch.int32, device=e_tm.device)
+    bp, durs = _bp_outs(T_x, B, n, e_tm.device)
     if bp.numel() == 0:
         return bp, durs
+    C, w, _, _ = _bp_plan(B, T_x, n, int(D))
     lib = _build.load_library()
     with torch.cuda.device(e_tm.device):
         err = lib.mobo_bp_launch(
             e_tm.data_ptr(), *e_tm.stride(), t_x.data_ptr(), t_y.data_ptr(),
-            bp.data_ptr(), durs.data_ptr(), B, T_x, n, int(D),
+            bp.data_ptr(), durs.data_ptr(), B, T_x, n, int(D), C, w,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, BP_KERNEL)
     _build.LAUNCHES[BP_KERNEL] += 1

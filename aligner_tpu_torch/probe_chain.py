@@ -32,6 +32,13 @@ cp.async into a ring of 8 rows (from a lattice that stays in L2), the
 three arms as selects behind two pad cells, two nested logaddexp, the
 alpha row's store, the wait for frame y + 1 and one barrier.
 
+H8's token step (`csrc/mobo.cu`) is a window of D compares, max and argmax
+with d ascending, over the exchanged row in shared memory, the carry's
+update, the next row's store and one barrier (128 blocks of 160 threads,
+D = 32, as at phase 7). Its walk's dependent step reads one backpointer of
+a cluster of 8 blocks of 129 positions: a byte of the owning block's
+shared memory through distributed shared memory, or an int32 from L2.
+
 Builds its own small CUDA source with nvcc into `_build/`, launches 16
 blocks (the phase-7 batch) of 128 threads (H2's and H3's column) and of
 288 (H4's, H5's and H6's), and prints one JSON line per shape with the
@@ -239,6 +246,97 @@ __global__ void skip_alpha_chain(const float* __restrict__ lp, int rows,
     __syncthreads();
   }
 }
+// `steps` dependent token steps of H8 over blockDim.x cells: a window of D
+// compares (max and argmax, d ascending, a later d only if strictly
+// greater) over the exchanged row in shared memory, D cells of halo left of
+// it, the carry's update, the next row's store and one barrier (the rows
+// double-buffered).
+__global__ void bp_chain(int* __restrict__ out, int steps, int D) {
+  extern __shared__ float xrows[];
+  const int T = blockDim.x;
+  const int c = threadIdx.x;
+  for (int k = c; k < 2 * (T + D); k += T) xrows[k] = NEG;
+  __syncthreads();
+  float carry = c ? NEG : 0.f;
+  xrows[D + c] = carry + 0.5f;
+  int acc = 0;
+  __syncthreads();
+  for (int y = 0; y < steps; ++y) {
+    const float* a = xrows + (y & 1) * (T + D) + D;
+    float* next = xrows + ((y + 1) & 1) * (T + D) + D;
+    float m = a[c - 1];
+    int at = 1;
+#pragma unroll 8
+    for (int d = 2; d <= D; ++d) {
+      const float v = a[c - d];
+      const bool take = v > m;
+      m = take ? v : m;
+      at = take ? d : at;
+    }
+    float v = m - 0.5f;
+    if (!(v > 0.5f * NEG)) v = NEG;
+    carry = v;
+    next[c] = v + 0.5f;
+    acc += at;
+    __syncthreads();
+  }
+  out[blockIdx.x * T + c] = acc + static_cast<int>(carry > 0.f);
+}
+// `steps` dependent steps of H8's walk over a cluster of 8 blocks of w
+// positions and `frames` token rows of backpointers (1..3, cyclically): by
+// thread 0 of block 0, its position falling by each read value (and
+// wrapping), through distributed shared memory from the owning block's
+// bytes (DSMEM), or from an int32 [frames, 8 w] array in L2.
+__device__ __forceinline__ unsigned cluster_address(const void* local,
+                                                    int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(local))),
+                 "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+template <bool DSMEM>
+__global__ void __cluster_dims__(8, 1, 1)
+    walk_bp_chain(const int* __restrict__ gbp, int* __restrict__ out,
+                  int steps, int frames, int w) {
+  extern __shared__ unsigned char bytes[];
+  for (int k = threadIdx.x; k < frames * w; k += blockDim.x)
+    bytes[k] = static_cast<unsigned char>(1 + k % 3);
+  cluster_sync();
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  if (rank == 0 && threadIdx.x == 0) {
+    const int n = 8 * w;
+    int pos = n - 1, r = 7, i = frames - 1;
+    for (int s = 0; s < steps; ++s) {
+      int d;
+      if (DSMEM) {
+        while (pos < r * w) --r;
+        unsigned v;
+        asm volatile("ld.shared::cluster.u8 %0, [%1];\n"
+                     : "=r"(v)
+                     : "r"(cluster_address(bytes + i * w + pos - r * w, r))
+                     : "memory");
+        d = static_cast<int>(v);
+      } else {
+        d = __ldcg(gbp + static_cast<long long>(i) * n + pos);
+      }
+      pos -= d;
+      if (pos < 0) {
+        pos += n;
+        r = 7;
+      }
+      i = i == 0 ? frames - 1 : i - 1;
+    }
+    out[blockIdx.x] = pos;
+  }
+  cluster_sync();
+}
 template <class Launch>
 float best_of_five(Launch launch) {
   cudaEvent_t start, end;
@@ -306,6 +404,29 @@ extern "C" float time_skip_alpha(const float* lp, int rows, float* alpha,
   const size_t smem = (8 * threads + 2 * (threads + 2)) * sizeof(float);
   return best_of_five([&] {
     skip_alpha_chain<8><<<blocks, threads, smem>>>(lp, rows, alpha, steps);
+  });
+}
+// Best of five launches in ms of H8's bare token step, or -1 if a launch
+// failed.
+extern "C" float time_bp(int* out, int blocks, int threads, int steps,
+                         int D) {
+  const size_t smem = 2 * static_cast<size_t>(threads + D) * sizeof(float);
+  return best_of_five([&] {
+    bp_chain<<<blocks, threads, smem>>>(out, steps, D);
+  });
+}
+// Best of five launches in ms of H8's walk from distributed shared memory
+// (dsmem != 0) or from L2, on `clusters` clusters of 8 blocks, or -1 if a
+// launch failed.
+extern "C" float time_bp_walk(int dsmem, const int* gbp, int* out,
+                              int clusters, int threads, int steps,
+                              int frames, int w) {
+  const size_t smem = static_cast<size_t>(frames) * w;
+  auto kernel = dsmem ? walk_bp_chain<true> : walk_bp_chain<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  return best_of_five([&] {
+    kernel<<<8 * clusters, threads, smem>>>(gbp, out, steps, frames, w);
   });
 }
 // Best of five launches in ms, or -1 if a launch failed.
@@ -425,6 +546,40 @@ def main() -> int:
                       "logaddexp, alpha stored", "blocks": BLOCKS,
                       "threads": threads, "ns_per_step": ms / STEPS * 1e6,
                       "device": card}), flush=True)
+    lib.time_bp.restype = ctypes.c_float
+    lib.time_bp.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int]
+    threads, D = 160, 32                 # H8's chain threads at phase 7
+    out = torch.empty(8 * BLOCKS * threads, dtype=torch.int32, device="cuda")
+    ms = lib.time_bp(out.data_ptr(), 8 * BLOCKS, threads, STEPS, D)
+    if ms < 0:
+        print(json.dumps({"error": "bp launch failed"}))
+        return 1
+    print(json.dumps({"probe": "bp", "step": f"H8 token: max/argmax over "
+                      f"D={D} cells from shared memory, one barrier",
+                      "blocks": 8 * BLOCKS, "threads": threads,
+                      "ns_per_step": ms / STEPS * 1e6, "device": card}),
+          flush=True)
+    lib.time_bp_walk.restype = ctypes.c_float
+    lib.time_bp_walk.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    frames, w = 128, 129                 # H8's slice at phase 7
+    gbp = (torch.arange(frames * 8 * w, device="cuda", dtype=torch.int32)
+           % 3 + 1)
+    walk_steps = 4096
+    for dsmem, how in ((1, "distributed shared memory (ld.shared::cluster)"),
+                       (0, "L2 (ld.global.cg)")):
+        ms = lib.time_bp_walk(dsmem, gbp.data_ptr(), out.data_ptr(),
+                              BLOCKS, threads, walk_steps, frames, w)
+        if ms < 0:
+            print(json.dumps({"error": "bp walk launch failed"}))
+            return 1
+        print(json.dumps({"probe": "bp_walk", "step": f"H8 walk: a "
+                          f"dependent backpointer read through {how}",
+                          "clusters": BLOCKS, "ns_per_step":
+                          ms / walk_steps * 1e6, "device": card}),
+              flush=True)
     return 0
 
 

@@ -29,7 +29,9 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
   7. CUDA-event times of each kernel against its plain version, beside
      the least time the card could take for the same bytes, operations
      and special-function results (H7's and H9's cluster plan beside them);
-     for H1-H6 also the time per frame of the longest item; H1 again
+     for H1-H6 and H13 also the time per frame of the longest item, for
+     H7-H9 per token; H7-H9 again at
+     B=64, B=256 and D=1; H1 again
      frame-major, with its plane forced into device memory and at the
      profiled training step's lattice, H5 at T_s = 1041, and the serving
      walls of maximum_path and BatchAligner; H3 again at
@@ -64,10 +66,12 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
  15. H7 (MoBo alpha), H8 (MoBo backpointers and walk) and H9 (MoBo beta)
      against mobo_alpha_plain, mobo_bp_plain and mobo_beta_plain with edge
      items at B = 16, D = 32 and T_y1 = 1025, at D = 4 with another T_y1,
-     at T_y1 = 131 (H7 and H9 in slices barely wider than D = 32), and at
-     B = 64 x 1025 (a smaller cluster): live cells rtol 1e-6 / atol 1e-5,
-     each plan (C, w) and max abs error printed, dead cells below NEG / 2,
-     backpointers and durations equal; the backward of mobo_forward and
+     at T_y1 = 131 (slices barely wider than D = 32), and at B = 64 x 1025
+     (a smaller cluster): live cells rtol 1e-6 / atol 1e-5, each plan
+     (C, w) and max abs error printed, dead cells below NEG / 2; H8 over
+     outputs pre-filled with garbage: backpointers and durations equal,
+     durations of feasible items tiling
+     t_y in steps of 1..D; the backward of mobo_forward and
      of mobo_loss on the card against the plain route's, rtol 1e-4 / atol
      2e-5
  16. boundary-search path with every plain version patched to raise: the
@@ -81,8 +85,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      serving batch B=256, 128x1024, and at an odd shape (T_x no multiple of
      32, T_y no multiple of 128), with edge items: `mas_bits` with 1, 2
      and 4 chains (H1's forward alone, H13) equal to `_forward_bits` and
-     to each other on every cell (H1's from both layouts and in both
-     plane forms, over garbage; its walk alone in both plane forms);
+     to each other on every cell, from both layouts, over garbage (H1's
+     in both plane forms; its walk alone in both plane forms);
      `mas_backtrack` as cmp (H1's walk alone), stage (H10), split (H11 +
      H12) and with 2 and 4 chains (H14) equal to `_backtrack`, `mas_plain`,
      the fused H1 and the numpy oracle, bit for bit, in both layouts; H11's
@@ -254,9 +258,9 @@ def mas_planes_in(where):
 
 @contextlib.contextmanager
 def mas_outputs_prefilled():
-    """While active, every output that H1 writes whole starts as garbage
-    (paths NaN, durations -1, bytes 0xA5), so a cell it leaves unwritten
-    shows."""
+    """While active, every output that H1 or H13 writes whole starts as
+    garbage (paths NaN, durations -1, bytes 0xA5), so a cell it leaves
+    unwritten shows."""
     from aligner_tpu_torch.ops import mas_kernel as mk
     path_out, bits_out = mk._path_out, mk._bits_out
     durations_out = mk._durations_out
@@ -267,9 +271,8 @@ def mas_outputs_prefilled():
             out.fill_(float("nan"))
         return out, view
 
-    def bits(*args, fill):
-        out = bits_out(*args, fill=fill)
-        return out if fill else out.fill_(0xA5)
+    def bits(*args):
+        return bits_out(*args).fill_(0xA5)
 
     with patched_attrs([(mk, "_path_out", paths), (mk, "_bits_out", bits),
                         (mk, "_durations_out",
@@ -436,12 +439,20 @@ def phase_two_pass_kernels(dev):
                                       want.transpose(1, 2) if fm else want)
         if bits[2:4].any():
             raise AssertionError("mas_bits: invalid items must get zeros")
-        for k in (2, 4):
-            got = mk.mas_bits(v, tx, ty, chains=k)
-            require_equal(f"H13 chains={k}, {T_x}x{T_y}", got, bits)
-            errs["mas_bits_chains_kernel"] = max(
-                errs["mas_bits_chains_kernel"],
-                float((got != want_bits).sum()))
+        # H13 over garbage, natural (tiles) and frame-major (rows).
+        with mas_outputs_prefilled():
+            for k in (2, 4):
+                for lattice in (v, v.transpose(1, 2).contiguous()
+                                .transpose(1, 2)):
+                    plan = mk._chains_plan(T_x, T_y, k,
+                                           lattice.stride(2) == 1)
+                    got = mk.mas_bits(lattice, tx, ty, chains=k)
+                    torch.cuda.synchronize()
+                    require_equal(f"H13 chains={k}, {T_x}x{T_y}, plan "
+                                  f"{plan}", got, want_bits)
+                    errs["mas_bits_chains_kernel"] = max(
+                        errs["mas_bits_chains_kernel"],
+                        float((got != want_bits).sum()))
         require_equal("_backtrack of the plain bits vs mas_plain",
                       mk._backtrack(plain_tm, tx, ty), want)
         require_equal("H1 fused vs mas_plain", mk.mas_path(v, tx, ty), want)
@@ -484,7 +495,7 @@ def phase_two_pass_kernels(dev):
                 f"t_x>t_y, t_x=0, full): mas_bits with 1, 2, 4 chains equal "
                 f"to _forward_bits on every cell (0 off the band and on "
                 f"invalid items; H1's from both layouts and plane forms, "
-                f"over garbage); H1's walk alone in both plane forms over "
+                f"H13's from both layouts, over garbage); H1's walk alone in both plane forms over "
                 f"NaN; mas_backtrack cmp, stage, split, chains=2, "
                 f"chains=4 bit-identical to _backtrack, mas_plain and the "
                 f"fused H1 in both layouts, items 0, 1, 4, 5, 6 to the numpy "
@@ -828,7 +839,10 @@ def phase_times(dev):
               "forward_sum_grad_kernel": int(gty.max()),
               "mas_skip_kernel": int(sty.max()),
               "forward_sum_skip_alpha_kernel": int(sgty.max()),
-              "forward_sum_skip_gamma_kernel": int(sgty.max())}
+              "forward_sum_skip_gamma_kernel": int(sgty.max()),
+              "mas_bits_chains_kernel": int(ty.max())}
+    # the token sweeps: the longest item's tokens
+    tokens = {name: int(mtx.clamp(max=T_X).max()) for name in MOBO_KERNELS}
     times = {}
     for name, (kernel, plain, work, *library) in runs.items():
         ms, plain_ms = abba_ms(kernel, plain)
@@ -846,26 +860,36 @@ def phase_times(dev):
                   else "")
                + (f"; {ms * 1e6 / frames[name]:.1f} ns a frame over the "
                   f"longest item's {frames[name]}" if name in frames
+                  else "")
+               + (f"; {ms * 1e6 / tokens[name]:.1f} ns a token over the "
+                  f"longest item's {tokens[name]}" if name in tokens
                   else ""))
     posterior_times(dev)
     skip_viterbi_times(dev)
     mas_times(dev)
+    log(7, f"mobo_bp_kernel's plan (C, w, z_shared, bytes) at B={B_OTA}: "
+           f"{mb._bp_plan(B_OTA, T_X, T_Y + 1, D_MOBO)}")
     for B, D in ((64, D_MOBO), (B_SERVE, D_MOBO), (B_OTA, 1)):
-        # H7 and H9 at a smaller cluster, at one block per item (B > the
-        # card's SMs), and with D = 1, where a token step is the chain's
-        # own cost without its window.
+        # H7-H9 at a smaller cluster, at one block per item (B > the card's
+        # SMs), and with D = 1, where a token step is the chain's own cost
+        # without its window.
         be_tm, btx, bty = mobo_inputs(dev, 15, T_Y, D, B)
         for name, kernel in (
                 ("mobo_alpha_kernel", lambda: mb.mobo_alpha(be_tm, btx, D)),
+                ("mobo_bp_kernel", lambda: mb.mobo_bp(be_tm, btx, bty, D)),
                 ("mobo_beta_kernel",
                  lambda: mb.mobo_beta(be_tm, btx, bty, D))):
             log(7, f"{name} B={B} {T_X} tokens x {T_Y + 1} positions, D={D}: "
                    f"{cuda_ms(kernel, 20):.4f} ms; cluster plan "
-                   "C={}, w={}".format(*mb._cluster_plan(B, T_Y + 1, D)))
+                   "C={}, w={}".format(*mb._cluster_plan(B, T_Y + 1, D))
+                   + (f"; H8's plan {mb._bp_plan(B, T_X, T_Y + 1, D)}"
+                      if name == "mobo_bp_kernel" else ""))
     for what, (kernel, plain, work) in two_pass_modes.items():
         ms, plain_ms = abba_ms(kernel, plain)
         log(7, f"{what} B={B_MAS} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
-               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}")
+               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}; "
+               f"{ms * 1e6 / int(ty.max()):.1f} ns a frame over the longest "
+               f"item's {int(ty.max())}")
     serving_times(dev)
     expand_device_times(dev)
     durs_ms = cuda_ms(lambda: mk.mas_durations(v, tx, ty), 20)
@@ -1193,7 +1217,9 @@ def serving_times(dev):
         if what in TWO_PASS_KERNELS and "chains" in what:
             what += ", 4 chains"
         log(7, f"{what} B={B_SERVE} {T_X}x{T_Y}: {ms:.4f} ms; plain version "
-               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}"
+               f"{plain_ms:.2f} ms; bound {work[0]:.4f} ms by {work[1]}; "
+               f"{ms * 1e6 / int(ty.max()):.1f} ns a frame over the longest "
+               f"item's {int(ty.max())}"
                + (f"; library call {cuda_ms(library[0], 20):.4f} ms"
                   if library else ""))
 
@@ -2098,6 +2124,40 @@ def mobo_grads(energies, tx, ty, D, weights):
     return x.grad, y.grad
 
 
+@contextlib.contextmanager
+def mobo_bp_prefilled():
+    """While active, H8's outputs start as garbage (backpointers -7,
+    durations -1), so a cell it leaves unwritten shows."""
+    from aligner_tpu_torch.ops import mobo_kernel as mb
+    outs = mb._bp_outs
+    with patched_attrs([(mb, "_bp_outs", lambda *args: tuple(
+            o.fill_(v) for o, v in zip(outs(*args), (-7, -1))))]):
+        yield
+
+
+def require_bp(D, bp, durs, want_bp, want_durs, tx, ty):
+    """H8's backpointers on tokens < t_x and durations equal to the plain
+    version's, 0 past t_x, and the durations of a feasible item tiling its
+    frames in steps of 1..D; returns the count of unequal backpointers."""
+    T_x = bp.shape[0]
+    xs = torch.arange(T_x, device=bp.device)[:, None, None]
+    live_tokens = (xs < tx[None, :, None]).expand_as(bp)
+    unequal = float((bp != want_bp)[live_tokens].sum())
+    require_equal(f"H8 backpointers D={D}", bp * live_tokens,
+                  want_bp * live_tokens)
+    if bp[~live_tokens].any():
+        raise AssertionError("H8: a token >= t_x has a backpointer")
+    require_equal(f"H8 durations D={D}", durs, want_durs)
+    ok = mobo_feasible(tx, ty, D)
+    inside = (xs[:, 0].T < tx[:, None])
+    if not (torch.equal(durs.sum(1)[ok], ty[ok].long())
+            and ((durs >= 1) & (durs <= D))[inside & ok[:, None]].all()
+            and not durs[~inside].any()):
+        raise AssertionError(f"H8 D={D}: durations of a feasible item do "
+                             f"not tile its frames in steps of 1..D")
+    return unequal
+
+
 def phase_mobo_kernels(dev):
     """H7, H8 and H9 against their plain versions on the card at each of
     MOBO_SHAPES (seed, B, T_y, D): the main path's shape, a small window,
@@ -2109,31 +2169,20 @@ def phase_mobo_kernels(dev):
     for seed, B, T_y, D in MOBO_SHAPES:
         e_tm, tx, ty = mobo_inputs(dev, seed, T_y, D, B)
         logB = mb.mobo_alpha(e_tm, tx, D)
-        bp, durs = mb.mobo_bp(e_tm, tx, ty, D)
         betas = mb.mobo_beta(e_tm, tx, ty, D)
-        torch.cuda.synchronize()
         want_bp, want_durs = mb.mobo_bp_plain(e_tm, tx, ty, D)
+        with mobo_bp_prefilled():
+            bp, durs = mb.mobo_bp(e_tm, tx, ty, D)
+            torch.cuda.synchronize()
+        errs[1] = max(errs[1], require_bp(D, bp, durs, want_bp, want_durs,
+                                          tx, ty))
         alpha_err = require_live_close(
             "H7", logB, mb.mobo_alpha_plain(e_tm, tx, D))
         beta_err = require_live_close(
             "H9", betas, mb.mobo_beta_plain(e_tm, tx, ty, D))
         errs[0] = max(errs[0], alpha_err)
         errs[2] = max(errs[2], beta_err)
-        xs = torch.arange(T_X, device=dev)[:, None, None]
-        live_tokens = (xs < tx[None, :, None]).expand_as(bp)
-        errs[1] = max(errs[1], float((bp != want_bp)[live_tokens].sum()))
-        require_equal(f"H8 backpointers D={D}", bp * live_tokens,
-                      want_bp * live_tokens)
-        if bp[~live_tokens].any():
-            raise AssertionError("H8: a token >= t_x has a backpointer")
-        require_equal(f"H8 durations D={D}", durs, want_durs)
         ok = mobo_feasible(tx, ty, D)
-        inside = (xs[:, 0].T < tx[:, None])
-        if not (torch.equal(durs.sum(1)[ok], ty[ok].long())
-                and ((durs >= 1) & (durs <= D))[inside & ok[:, None]].all()
-                and not durs[~inside].any()):
-            raise AssertionError(f"H8 D={D}: durations of a feasible item do "
-                                 f"not tile its frames in steps of 1..D")
         total = logB[-1].gather(1, ty.long()[:, None])[:, 0]
         if not (torch.equal(total > 0.5 * mb.NEG, ok)
                 and torch.isfinite(total).all()):
@@ -2160,12 +2209,15 @@ def phase_mobo_kernels(dev):
         C, w = mb._cluster_plan(B, T_y + 1, D)
         log(15, f"H7, H8, H9 D={D}: B={B} {T_X} tokens x {T_y + 1} "
                 f"positions with edge items (t_x=1, full, no boundary "
-                f"sequence, t_x=0); H7 and H9 in clusters of C={C} blocks of "
-                f"w={w} positions: live cells within rtol {MOBO_RTOL} / atol "
+                f"sequence, t_x=0); H7, H8 and H9 in clusters of C={C} "
+                f"blocks of w={w} positions (H8's plan (C, w, z_shared, "
+                f"bytes) {mb._bp_plan(B, T_X, T_y + 1, D)}): "
+                f"live cells within rtol {MOBO_RTOL} / atol "
                 f"{MOBO_ATOL} of mobo_alpha_plain and mobo_beta_plain (max "
                 f"abs err {alpha_err!r} and {beta_err!r}), dead cells "
-                f"below NEG / 2; backpointers on tokens < t_x and durations "
-                f"equal to mobo_bp_plain's; mobo_forward's and mobo_loss's "
+                f"below NEG / 2; H8 over garbage: backpointers on "
+                f"tokens < t_x and durations equal to mobo_bp_plain's, 0 "
+                f"past t_x, each feasible item's durations tiling t_y; mobo_forward's and mobo_loss's "
                 f"backward within rtol {MOBO_GRAD_RTOL} / atol "
                 f"{MOBO_GRAD_ATOL} of the plain route's (max abs err "
                 f"{grad_err:.3g})")

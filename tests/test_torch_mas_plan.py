@@ -1,5 +1,6 @@
-"""The launch plan of the MAS kernel H1 (`ops/mas_kernel.py:_mas_plan`)
-and its walk, checked on the CPU: the place of the bit plane, the fetch,
+"""The launch plans of the MAS kernels H1 (`ops/mas_kernel.py:_mas_plan`)
+and H13 (`_chains_plan`, K of H1's forward chains a block) and H1's walk,
+checked on the CPU: the place of the bit plane, the fetch,
 a shared-memory layout the card would refuse, a plan the kernel was not
 built for, or a word walk that leaves the plain walk's path shows here
 before any launch.
@@ -16,13 +17,15 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from aligner_tpu_torch.ops.forward_sum_kernel import MAX_THREADS
-from aligner_tpu_torch.ops.mas_kernel import (MAS_PLANS, MAX_SMEM, _mas_plan,
-                                              _mas_smem, mas_bits,
+from aligner_tpu_torch.ops.mas_kernel import (MAS_PLANS, MAX_SMEM,
+                                              _chains_plan, _forward_smem,
+                                              _mas_plan, _mas_smem, mas_bits,
                                               mas_expand_plain,
                                               mas_walk_idx_plain)
 
-MAS_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "aligner_tpu_torch", "csrc", "mas.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "aligner_tpu_torch", "csrc")
+MAS_SOURCE = os.path.join(CSRC, "mas_forward.cuh")   # with_mas_plan
 
 WIDEST = MAS_PLANS[-1][0] * MAX_THREADS       # 8192 tokens
 # (T_x, T_y): the lattices of the paths and the card tests (128x1024,
@@ -136,6 +139,75 @@ def test_plans_match_the_kernels_built():
     assert built == set(MAS_PLANS)
 
 
+def test_both_kernels_dispatch_through_the_plans():
+    """H1 and H13 launch through `with_mas_plan`, each instantiating its
+    kernel with the plan's cells, ring, planes and fetch, so MAS_PLANS is
+    the table of both."""
+    for name, kernel in (("mas.cu", "mas_kernel"),
+                         ("mas_two_pass.cu", "mas_bits_chains_kernel")):
+        with open(os.path.join(CSRC, name)) as f:
+            source = f.read()
+        assert '#include "mas_forward.cuh"' in source
+        assert "with_mas_plan(" in source
+        assert (f"{kernel}<P::cells, P::ring, P::shared, P::tiles>"
+                in source)
+
+
+CHAIN_LIMITS = {K: MAX_SMEM // (8 * K) for K in (2, 4)}   # 14528, 7264
+
+
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("frames_contiguous", [True, False])
+@pytest.mark.parametrize("T_x,T_y", SHAPES[:12] + (
+    (2048, 1024), (2049, 100), (4096, 30), (4097, 30), (7264, 7280),
+    (14528, 5)))
+def test_chains_plan_covers_the_column_within_the_card(T_x, T_y, K,
+                                                      frames_contiguous):
+    """Every column H13 took before its plans (K chains' two float columns
+    in a block's shared memory) has a plan: whole warps a chain, K chains
+    within 1024 threads and 227 KB, a plan of MAS_PLANS (the first that
+    fits, tiles only where the frames are contiguous) or the wide form."""
+    if T_x > CHAIN_LIMITS[K]:
+        with pytest.raises(ValueError, match=f"{K} chains takes at most"):
+            _chains_plan(T_x, T_y, K, frames_contiguous)
+        return
+    threads, cells, ring, planes, fetch, smem = _chains_plan(
+        T_x, T_y, K, frames_contiguous)
+    assert threads % 32 == 0 and K * threads <= MAX_THREADS
+    assert threads * cells >= T_x > (threads - 32) * cells
+    assert smem <= MAX_SMEM
+    if fetch == "wide":
+        assert (ring, planes, smem) == (0, "global", 8 * K * T_x)
+        assert cells == -(-T_x // (MAX_THREADS // K))
+        # a device-memory plan fits wherever a plan covers the column
+        assert T_x > MAS_PLANS[-1][0] * (MAX_THREADS // K)
+        return
+    assert (cells, ring, planes, fetch) in MAS_PLANS
+    assert fetch == "rows" or frames_contiguous
+    assert smem == K * _forward_smem(threads * cells, ring,
+                                     T_y if planes == "shared" else 0)
+    assert cells == min(c for c, *_ in MAS_PLANS
+                        if c * (MAX_THREADS // K) >= T_x)
+    for c, r, p, f in MAS_PLANS[:MAS_PLANS.index(
+            (cells, ring, planes, fetch))]:
+        if c == cells and (f == "rows" or frames_contiguous):
+            assert K * _forward_smem(threads * cells, r,
+                                     T_y if p == "shared" else 0) > MAX_SMEM
+
+
+@pytest.mark.parametrize("T_x,T_y,K,frames_contiguous,want", [
+    # phase 7's batch: four 16 KB planes beside their rings
+    (128, 1024, 2, True, (128, 1, 32, "shared", "tiles")),
+    (128, 1024, 4, True, (128, 1, 32, "shared", "tiles")),
+    (128, 1024, 4, False, (128, 1, 8, "shared", "rows")),
+    (45, 300, 4, True, (64, 1, 32, "shared", "tiles")),
+    # T_x = 1100: eight cells a thread at K = 4, the planes in device memory
+    (1100, 1300, 4, True, (160, 8, 4, "global", "rows")),
+    (1100, 1300, 2, True, (288, 4, 8, "global", "rows"))])
+def test_chains_plans_of_the_paths(T_x, T_y, K, frames_contiguous, want):
+    assert _chains_plan(T_x, T_y, K, frames_contiguous)[:5] == want
+
+
 # ---- the plane and the word walk, emulated as csrc/mas.cu runs them ----
 
 def pack_plane(bits, t_x, t_y, words):
@@ -230,3 +302,68 @@ def test_word_walk_equals_the_plain_walk(cells, batch):
         np.testing.assert_array_equal(
             mas_expand_plain(torch.from_numpy(got), value.shape[1]).numpy(),
             mas_expand_plain(want, value.shape[1]).numpy())
+
+
+# ---- the byte writer, emulated as csrc/mas_forward.cuh runs it ----
+
+def write_bytes16(plane, tx, ty, valid, T_x, T_y):
+    """`write_bits` where T_x % 16 == 0: one store of 16 bytes a step,
+    the band of cells x..x+15 a mask of the plane word's 16 bits, each
+    nibble spread to 4 bytes by one multiply (`bytes4`)."""
+    out = np.zeros((T_y, T_x), np.uint8)
+    top = ty if valid else 0
+    for y in range(T_y):
+        for x in range(0, T_x, 16):
+            lo = max(tx - (ty - y) - x, 0)
+            hi = min(min(tx - 1, y) - x, 15)
+            m = 0
+            if y < top and lo <= hi:
+                m = (int(plane[y, x >> 5]) >> (x & 31)) & ((2 << hi)
+                                                           - (1 << lo))
+            for q in range(4):
+                four = (((m >> 4 * q) & 15) * 0x00204081) & 0x01010101
+                out[y, x + 4 * q:x + 4 * q + 4] = np.frombuffer(
+                    four.to_bytes(4, "little"), np.uint8)
+    return out
+
+
+@st.composite
+def sixteen_wide_batches(draw):
+    """A ragged batch of small integers over a column of a multiple of 16
+    tokens, with the contract's edges, and a plane whose bits off each
+    item's band are random (the forward leaves them so)."""
+    B = 4
+    T_x = 16 * draw(st.integers(1, 4))
+    T_y = draw(st.integers(T_x, 100))
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    value = rng.integers(-2, 3, (B, T_x, T_y)).astype(np.float32)
+    t_x = rng.integers(0, T_x + 2, B).astype(np.int32)
+    t_y = rng.integers(1, T_y + 1, B).astype(np.int32)
+    t_x[0], t_y[0] = T_x, T_y
+    t_x[1] = t_y[1] = min(T_x, T_y)
+    noise = rng.integers(0, 2**32, (B, T_y, T_x // 32 + 1), dtype=np.uint64)
+    return value, t_x, t_y, noise.astype(np.uint32)
+
+
+@settings(max_examples=25, deadline=None)
+@given(batch=sixteen_wide_batches())
+def test_sixteen_byte_writer_equals_the_plain_bits(batch):
+    """The 16-bytes-a-store writer over a plane that holds the forward's
+    bits on the band and noise off it gives `mas_bits`' plain bytes on
+    every cell: 0 off the band, past t_x and t_y and on invalid items."""
+    value, t_x, t_y, noise = batch
+    B, T_x, T_y = value.shape
+    want = mas_bits(*(torch.from_numpy(a) for a in (value, t_x, t_y)))
+    words = noise.shape[-1]
+    xs, ys = np.arange(32 * words), np.arange(T_y)[:, None]
+    for b in range(B):
+        tx, ty = int(t_x[b]), int(t_y[b])
+        valid = 1 <= tx <= ty and tx <= T_x and ty <= T_y
+        band = (xs < tx) & (xs <= ys) & (xs >= tx - (ty - ys))
+        own = pack_plane(want[b:b + 1].numpy(), t_x[b:b + 1],
+                         t_y[b:b + 1], words)[0]
+        keep = (band.reshape(T_y, words, 32).astype(np.uint64)
+                << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+        plane = (own & keep) | (noise[b] & ~keep)
+        got = write_bytes16(plane, tx, ty, valid, T_x, T_y)
+        np.testing.assert_array_equal(got, want[b].numpy())

@@ -285,8 +285,8 @@ def mas_planes(monkeypatch):
 
 @pytest.fixture
 def mas_outputs_prefilled(monkeypatch):
-    """Every output that H1 writes whole starts as garbage: paths NaN,
-    durations -1, bits 0xA5; so a cell it leaves unwritten shows."""
+    """Every output that H1 or H13 writes whole starts as garbage: paths
+    NaN, durations -1, bits 0xA5; so a cell it leaves unwritten shows."""
     path_out = mas_kernel._path_out
     bits_out = mas_kernel._bits_out
     durations_out = mas_kernel._durations_out
@@ -297,9 +297,8 @@ def mas_outputs_prefilled(monkeypatch):
             out.fill_(float("nan"))
         return out, view
 
-    def bits(*args, fill):
-        out = bits_out(*args, fill=fill)
-        return out if fill else out.fill_(0xA5)
+    def bits(*args):
+        return bits_out(*args).fill_(0xA5)
 
     monkeypatch.setattr(mas_kernel, "_path_out", paths)
     monkeypatch.setattr(mas_kernel, "_bits_out", bits)
@@ -392,6 +391,32 @@ def test_two_pass_routes_match_plain(cuda, route, seed, B, T_x, T_y):
         torch.testing.assert_close(
             mas_kernel.mas_walk_idx(bits, tx, ty),
             mas_kernel.mas_walk_idx_plain(bits, tx, ty), rtol=0, atol=0)
+
+
+# H13: K chains a block over bytes pre-filled with 0xA5, natural (tiles
+# where a chain holds one cell a thread) and frame-major (rows); the odd
+# shape, T_x = 1100 (planes in device memory), and columns past a chain's
+# plans (the wide form: T_x = 2100 at K = 4, and 7264, the widest that four
+# chains' columns fit). Item 0 has t_x > t_y, the last t_x = 0.
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [2, 4])
+@pytest.mark.parametrize("seed,B,T_x,T_y", [(50, 8, 45, 300),
+                                            (51, 4, 1100, 1300),
+                                            (52, 4, 2100, 2200),
+                                            (53, 4, 7264, 7280)])
+def test_chains_forward_writes_every_byte(cuda, mas_outputs_prefilled, seed,
+                                          B, T_x, T_y, chains):
+    value, t_x, t_y = ragged(seed, B, T_x, T_y)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    want = mas_kernel.mas_bits(v.cpu(), tx.cpu(), ty.cpu()).to(cuda)
+    fm_view = v.transpose(1, 2).contiguous().transpose(1, 2)
+    for lattice, contiguous in ((v, True), (fm_view, False)):
+        fetch = mas_kernel._chains_plan(T_x, T_y, chains, contiguous)[4]
+        assert (fetch == "wide") == (T_x > 8 * 1024 // chains)
+        assert fetch != "tiles" or contiguous
+        torch.testing.assert_close(
+            mas_kernel.mas_bits(lattice, tx, ty, chains=chains), want,
+            rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -722,6 +747,71 @@ def test_mobo_kernels_match_plain(cuda, seed, B, T_x, T_y, D):
     torch.testing.assert_close(mobo_kernel.mobo_alpha(view, tx, D),
                                mobo_kernel.mobo_alpha(e_tm, tx, D),
                                rtol=0, atol=0)
+
+
+@pytest.fixture
+def mobo_bp_forced(monkeypatch):
+    """force(form) runs H8 as planned ("planned") or in its wide form
+    ("wide"); its outputs start as garbage (backpointers -7, durations
+    -1), so a cell it leaves unwritten shows."""
+    plan, outs = mobo_kernel._bp_plan, mobo_kernel._bp_outs
+    monkeypatch.setattr(mobo_kernel, "_bp_outs", lambda *args: tuple(
+        o.fill_(v) for o, v in zip(outs(*args), (-7, -1))))
+
+    def force(form):
+        def forced(B, T_x, n, D):
+            if form == "wide":
+                return 0, n, False, 4 * (3 * n + 4 * D)
+            return plan(B, T_x, n, D)
+
+        monkeypatch.setattr(mobo_kernel, "_bp_plan", forced)
+
+    return force
+
+
+# H8 at D = 1, 4 and 32, 1000 and 4000; T_y1 = 131 (slices barely wider
+# than D), 1101 and 1025 at B = 16 (z in shared memory) and B = 64 (z in
+# the bp rows); T_y1 = 9001 with D = 4000, which only the wide form holds;
+# B = 133, more items than SMs, which the plan gives the wide form. Edge
+# items: t_x = 1, t_x = T_x, no boundary sequence, t_x = 0,
+# ties everywhere (item 4) and t_x > t_y (item 5, the clamp).
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["planned", "wide"])
+@pytest.mark.parametrize("seed,B,T_x,T_y,D", [(40, 6, 40, 30, 1),
+                                              (41, 6, 128, 300, 4),
+                                              (42, 16, 128, 1024, 32),
+                                              (43, 6, 12, 130, 32),
+                                              (44, 6, 40, 1100, 32),
+                                              (45, 64, 128, 1024, 32),
+                                              (46, 6, 8, 2000, 1000),
+                                              (47, 6, 4, 9000, 4000),
+                                              (48, 133, 16, 60, 4)])
+def test_mobo_bp_kernel_matches_plain(cuda, mobo_bp_forced, seed, B, T_x,
+                                      T_y, D, form):
+    """Backpointers on tokens < t_x and durations equal to mobo_bp_plain's,
+    backpointers 0 on tokens >= t_x, every cell written over garbage; the
+    durations of an item with a boundary sequence tile t_y in steps of
+    1..D."""
+    mobo_bp_forced(form)
+    energies, t_x, t_y = mobo_ragged(seed, B, T_x, T_y, D)
+    energies[4] = 0.0
+    t_x[5], t_y[5] = T_x, 1
+    tx, ty = (torch.from_numpy(a).to(cuda) for a in (t_x, t_y))
+    e_tm = mobo._prep_energies(torch.from_numpy(energies).to(cuda), tx, ty)
+    plan = mobo_kernel._bp_plan(B, T_x, T_y + 1, D)
+    assert (plan[0] == 0) == (form == "wide" or T_y == 9000
+                              or B > mobo_kernel.SMS)
+    bp, durs = mobo_kernel.mobo_bp(e_tm, tx, ty, D)
+    want_bp, want_durs = mobo_kernel.mobo_bp_plain(e_tm, tx, ty, D)
+    live = torch.arange(T_x, device=cuda)[:, None, None] < tx[None, :, None]
+    torch.testing.assert_close(bp * live, want_bp * live, rtol=0, atol=0)
+    assert not (bp * ~live).any()
+    torch.testing.assert_close(durs, want_durs, rtol=0, atol=0)
+    ok = (tx >= 1) & (tx <= ty) & (ty <= tx * D)
+    inside = live[:, :, 0].T
+    assert torch.equal(durs.sum(1)[ok], ty[ok].long())
+    assert ((durs >= 1) & (durs <= D))[inside & ok[:, None]].all()
+    assert not durs[~inside].any()
 
 
 @pytest.mark.cuda

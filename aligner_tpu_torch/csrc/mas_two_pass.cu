@@ -24,22 +24,26 @@
 // arithmetic, `fmaxf` then one rounded add, and the file is built without
 // --use_fast_math, so bits and paths are identical to the fused kernel's.
 //
-// What bounds them on this card. Every walk is a chain of t_y dependent
-// one-byte loads from the bit lattice (L2 latency each), run by a single
-// thread per item: latency, not bytes. What the variants change is how the
-// path gets to memory and how many chains a block keeps in flight:
-//  - the staged walk and the expand kernel write every cell of the path,
-//    zeros included, with all threads and coalesced along frames, into an
-//    uninitialised output: the zero-fill pass that the scattered walk needs
-//    before it (a second write of the whole path) is gone;
-//  - the staged walk overlaps the two: one warp walks a chunk of frames
-//    while the other warps store the tile of the chunk walked before it;
+// What bounds them on this card. A walk is a chain of t_y dependent
+// steps per item; what the variants change is where the chain reads its
+// bytes, how the path gets to memory and how many chains a block keeps in
+// flight:
+//  - the staged walk and the K-chain walk share csrc/mas_walk.cuh: a
+//    producer warp streams the item's bytes, F frames a chunk, into a ring
+//    of S stages in shared memory ahead of the walk (one cp.async.bulk a
+//    chunk where the alignment allows it); one thread walks from there,
+//    reading four frames' words before their steps, so no step waits on
+//    the L2; storer warps write each walked chunk's tile of the path whole,
+//    zeros included, into an uninitialised output. The staged walk runs
+//    one such group a block, B blocks; the K-chain walk K groups a block,
+//    one item each, B / K blocks. What is left on the chain is a shared
+//    read and a few integer operations a frame, and the path's bytes;
+//  - the expand kernel writes every cell of the path, zeros included,
+//    coalesced along frames, into an uninitialised output;
 //  - the split form moves the walk into a kernel that writes four bytes
-//    per frame, and the path into a kernel with no carry at all, which is
-//    bounded by the bytes of the path alone;
-//  - the K-chain walk puts K items into one block: K load chains in
-//    flight per block (one per warp, so that they do not serialise in one
-//    warp), B / K blocks instead of B;
+//    per frame (one thread per item, a chain of dependent one-byte loads
+//    from the L2), and the path into a kernel with no carry at all, which
+//    is bounded by the bytes of the path alone;
 //  - the K-chain forward runs K of H1's forward chains a block
 //    (csrc/mas_forward.cuh), each over its own item behind its own named
 //    barrier, so that no chain waits for a longer item; its bits go into a
@@ -48,20 +52,15 @@
 //    load/store unit, so a chain runs as H1 does with K items to an SM.
 //
 // Times: PERF.md (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3). The
-// expand kernel at B=32 reads the host's launch overhead, not the card;
-// whole-tile writes save the fill and no more; and a walk that also
-// streams the path through the L2 loses its bits from it at B=256 (path
-// 134 MB, bits 32 MB, L2 50 MB), which the index walk does not.
+// expand kernel at B=32 reads the host's launch overhead, not the card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mas_forward.cuh"
+#include "mas_walk.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;         // frames per staged tile
-constexpr int kStageRows = 4;       // tile rows stored per pass
-constexpr int kStageThreads = 32 + kStageRows * kChunk;
 constexpr int kIdxWarps = 4;        // items per block of the index walk
 constexpr int kExpandThreads = 128;
 constexpr int kExpandFrames = 4;    // frames per thread of the expand kernel
@@ -78,61 +77,20 @@ __device__ __forceinline__ bool valid_item(int tx, int ty, int T_x, int T_y) {
   return tx >= 1 && tx <= ty && tx <= T_x && ty <= T_y;
 }
 
-// Staged walk. One block per item. Frames are taken in chunks of kChunk,
-// from the last chunk to the first. In iteration c the first warp walks
-// chunk n-1-c (lane 0 follows the bits and records token index + 1 per
-// frame in shared memory, 0 for a frame that emits nothing) while the other
-// warps store the [T_x, kChunk] tile of the chunk walked in iteration c-1,
-// zeros included. Every cell of the item's path is written, so the output
-// needs no zero-fill. Stores are coalesced along frames when sp_y == 1.
-__global__ void mas_walk_stage_kernel(const uint8_t* __restrict__ bits,
-                                      const int* __restrict__ t_x,
-                                      const int* __restrict__ t_y,
-                                      float* __restrict__ path,
-                                      long long sp_b, long long sp_x,
-                                      long long sp_y, int T_x, int T_y) {
-  __shared__ int hot[2][kChunk];
+// Staged walk. One block per item: the ring walk of csrc/mas_walk.cuh
+// with the whole block as its group.
+__global__ void __launch_bounds__(1024) mas_walk_stage_kernel(
+    const uint8_t* __restrict__ bits, const int* __restrict__ t_x,
+    const int* __restrict__ t_y, float* __restrict__ path, long long sp_b,
+    long long sp_x, long long sp_y, int T_x, int T_y, int frames, int stages,
+    int fetch) {
+  extern __shared__ __align__(16) unsigned char walk_smem_bytes[];
   const int b = blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
-  const bool valid = valid_item(tx, ty, T_x, T_y);
-  const uint8_t* bits_b = bits + static_cast<long long>(b) * T_y * T_x;
-  float* p = path + b * sp_b;
-  const int n = (T_y + kChunk - 1) / kChunk;
-  int index = tx - 1;  // carried across chunks by the walking thread
-
-  for (int c = 0; c <= n; ++c) {
-    if (threadIdx.x < 32) {
-      if (c < n) {
-        const int y0 = (n - 1 - c) * kChunk;
-        int* out = hot[c & 1];
-        for (int j = threadIdx.x; j < kChunk; j += 32) {
-          if (!valid || y0 + j >= ty) out[j] = 0;
-        }
-        if (threadIdx.x == 0 && valid) {
-          const int last = min(ty, y0 + kChunk) - 1;
-          for (int y = last; y >= y0; --y) {
-            out[y - y0] = index + 1;
-            index =
-                step(bits_b[static_cast<long long>(y) * T_x + index], index);
-          }
-        }
-      }
-    } else if (c > 0) {
-      const int t = threadIdx.x - 32;
-      const int j = t % kChunk;
-      const int y = (n - c) * kChunk + j;
-      if (y < T_y) {
-        const int token = hot[(c - 1) & 1][j];
-        for (int x = t / kChunk; x < T_x; x += kStageRows) {
-          p[x * sp_x + y * sp_y] = (token == x + 1) ? 1.f : 0.f;
-        }
-      }
-    }
-    // The tile walked in this iteration is stored in the next one, and the
-    // buffer stored in this one is walked into in the next.
-    __syncthreads();
-  }
+  ring_walk(bits + static_cast<long long>(b) * T_y * T_x, tx, ty,
+            valid_item(tx, ty, T_x, T_y), path + b * sp_b, sp_x, sp_y, T_x,
+            T_y, frames, stages, fetch, walk_smem_bytes, 0, BlockGroup{});
 }
 
 // Index walk. One warp per item: lane 0 follows the bits and writes token
@@ -283,28 +241,27 @@ __global__ void __launch_bounds__(1024) mas_bits_chains_wide_kernel(
     bits_b[g] = 0;
 }
 
-// K-chain walk. Block j walks items c * B/K + j, c = 0..K-1, lane 0 of
-// warp c each: K chains of dependent loads in flight per block. The ones
-// are scattered into a zero-filled path, as in mas.cu.
-__global__ void mas_walk_chains_kernel(const uint8_t* __restrict__ bits,
-                                       const int* __restrict__ t_x,
-                                       const int* __restrict__ t_y,
-                                       float* __restrict__ path,
-                                       long long sp_b, long long sp_x,
-                                       long long sp_y, int B, int T_x,
-                                       int T_y, int chains) {
-  if (threadIdx.x % 32 != 0) return;
-  const int b = (threadIdx.x / 32) * (B / chains) + blockIdx.x;
+// K-chain walk. Block j walks items c * B/K + j, c = 0..K-1: chain c is a
+// group of `per` threads (whole warps) that runs the ring walk of
+// csrc/mas_walk.cuh over its own item, in its own walk_smem bytes, behind
+// its own mbarriers (named barrier 1 + c only once, after their init).
+__global__ void __launch_bounds__(1024) mas_walk_chains_kernel(
+    const uint8_t* __restrict__ bits, const int* __restrict__ t_x,
+    const int* __restrict__ t_y, float* __restrict__ path, long long sp_b,
+    long long sp_x, long long sp_y, int B, int T_x, int T_y, int chains,
+    int frames, int stages, int fetch) {
+  extern __shared__ __align__(16) unsigned char walk_smem_bytes[];
+  const int per = blockDim.x / chains;
+  const int c = threadIdx.x / per;
+  const int b = c * (B / chains) + blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
-  if (!valid_item(tx, ty, T_x, T_y)) return;
-  const uint8_t* bits_b = bits + static_cast<long long>(b) * T_y * T_x;
-  float* p = path + b * sp_b;
-  int index = tx - 1;
-  for (int y = ty - 1; y >= 0; --y) {
-    p[index * sp_x + y * sp_y] = 1.f;
-    index = step(bits_b[static_cast<long long>(y) * T_x + index], index);
-  }
+  const ChainGroup chain{1 + c, static_cast<unsigned>(c * per),
+                         static_cast<unsigned>(per)};
+  ring_walk(bits + static_cast<long long>(b) * T_y * T_x, tx, ty,
+            valid_item(tx, ty, T_x, T_y), path + b * sp_b, sp_x, sp_y, T_x,
+            T_y, frames, stages, fetch,
+            walk_smem_bytes + c * walk_smem(T_x, frames, stages), c, chain);
 }
 
 }  // namespace
@@ -313,16 +270,52 @@ __global__ void mas_walk_chains_kernel(const uint8_t* __restrict__ bits,
 // bits: uint8 [B, T_y, T_x], contiguous; t_x, t_y: int32 [B]; path: f32,
 // read as [B, T_x, T_y] through element strides sp_*; B, T_x, T_y >= 1.
 
-// path: uninitialised; every cell is written.
+namespace {
+
+// The ring walk's launch, K groups of `threads` a block, or
+// cudaErrorInvalidValue for a plan that was not built or that the bits'
+// alignment does not take (ops/mas_kernel.py: _walk_plan).
+template <class Kernel, class... Args>
+cudaError_t ring_walk_launch(Kernel kernel, const uint8_t* bits, int T_x,
+                             int T_y, int chains, int threads, int frames,
+                             int stages, int fetch, int blocks,
+                             cudaStream_t stream, Args... args) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(bits);
+  const bool takes =
+      fetch == WALK_BULK
+          ? base % 16 == 0 && static_cast<long long>(T_x) * T_y % 16 == 0 &&
+                static_cast<long long>(frames) * T_x % 16 == 0
+          : fetch == WALK_ASYNC ? base % 4 == 0 && T_x % 4 == 0
+                                : fetch == WALK_BYTES;
+  if (!walk_plan_built(frames, stages) || !takes || threads % 32 != 0 ||
+      threads < 96 || threads * chains > 1024)
+    return cudaErrorInvalidValue;
+  const size_t smem = chains * walk_smem(T_x, frames, stages);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, threads * chains, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// path: uninitialised; every cell is written. threads, frames, stages
+// and fetch (0 bulk, 1 async, 2 bytes) are the wrapper's plan
+// (ops/mas_kernel.py: _walk_plan with K = 1).
 extern "C" int mas_walk_stage_launch(const uint8_t* bits, const int* t_x,
                                      const int* t_y, float* path,
                                      long long sp_b, long long sp_x,
                                      long long sp_y, int B, int T_x, int T_y,
-                                     void* stream) {
-  mas_walk_stage_kernel<<<B, kStageThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      bits, t_x, t_y, path, sp_b, sp_x, sp_y, T_x, T_y);
-  return static_cast<int>(cudaGetLastError());
+                                     int threads, int frames, int stages,
+                                     int fetch, void* stream) {
+  return static_cast<int>(ring_walk_launch(
+      mas_walk_stage_kernel, bits, T_x, T_y, 1, threads, frames, stages,
+      fetch, B, static_cast<cudaStream_t>(stream), bits, t_x, t_y, path,
+      sp_b, sp_x, sp_y, T_x, T_y, frames, stages, fetch));
 }
 
 // idx: int32 [B, T_y], uninitialised; every cell is written.
@@ -397,17 +390,20 @@ extern "C" int mas_bits_chains_launch(
       }));
 }
 
-// path: zero-filled. chains is 1, 2 or 4 and divides B.
+// path: uninitialised; every cell is written. chains is 1, 2 or 4 and
+// divides B; threads (a chain's), frames, stages and fetch are the
+// wrapper's plan (ops/mas_kernel.py: _walk_plan).
 extern "C" int mas_walk_chains_launch(const uint8_t* bits, const int* t_x,
                                       const int* t_y, float* path,
                                       long long sp_b, long long sp_x,
                                       long long sp_y, int B, int T_x, int T_y,
-                                      int chains, void* stream) {
-  if ((chains != 1 && chains != 2 && chains != 4) || B % chains != 0) {
+                                      int chains, int threads, int frames,
+                                      int stages, int fetch, void* stream) {
+  if ((chains != 1 && chains != 2 && chains != 4) || B % chains != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  mas_walk_chains_kernel<<<B / chains, 32 * chains, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      bits, t_x, t_y, path, sp_b, sp_x, sp_y, B, T_x, T_y, chains);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ring_walk_launch(
+      mas_walk_chains_kernel, bits, T_x, T_y, chains, threads, frames,
+      stages, fetch, B / chains, static_cast<cudaStream_t>(stream), bits,
+      t_x, t_y, path, sp_b, sp_x, sp_y, B, T_x, T_y, chains, frames, stages,
+      fetch));
 }

@@ -62,6 +62,17 @@ MAS_PLANS = (
     (4, 8, "global", "rows"),
     (8, 4, "shared", "rows"), (8, 4, "global", "rows"))
 FETCHES = ("rows", "tiles", "wide")   # the launch's fetch codes
+# (frames a chunk F, stages S) of H10's and H14's ring walk, the plans
+# `kWalkPlans` in csrc/mas_walk.cuh builds, in order of preference: the
+# deepest chunks whose K rings fit a block's shared memory. F = 1 frame
+# behind a single stage still takes H1's widest column with 4 chains.
+WALK_PLANS = ((128, 4), (64, 4), (32, 4), (16, 4), (8, 4), (4, 4), (2, 4),
+              (1, 4), (1, 2), (1, 1))
+# How a chunk's bytes reach the ring: one cp.async.bulk ("bulk"), 4-byte
+# cp.async a lane ("async"), or byte loads ("bytes"); the launch's codes.
+WALK_FETCHES = ("bulk", "async", "bytes")
+WALK_THREADS = 256    # a walk group: a walker, a producer, 6 storer warps
+WALK_MAX_T_X = 32767  # the walk's tokens are int16
 
 
 def _on_cuda(value: torch.Tensor) -> bool:
@@ -274,6 +285,46 @@ def _chains_plan(T_x: int, T_y: int, K: int, frames_contiguous: bool
     return threads, cells, 0, "global", "wide", smem
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _walk_smem(T_x: int, frames: int, stages: int) -> int:
+    """Shared-memory bytes of one walk group (csrc/mas_walk.cuh:
+    walk_smem): 4 S mbarriers, S byte stages of F frames and S token
+    stages of F int16."""
+    return (32 * stages + stages * _round16(frames * T_x)
+            + _round16(2 * stages * frames))
+
+
+def _walk_plan(T_x: int, T_y: int, K: int, base: int
+               ) -> tuple[int, int, int, str, int]:
+    """(threads a chain, frames a chunk F, stages S, fetch, shared-memory
+    bytes) of H10 (K = 1) and H14 (K chains a block) over uint8 bits
+    [B, T_y, T_x] at address `base`: the first plan of WALK_PLANS whose K
+    rings fit a block's shared memory. fetch is "bulk" exactly where every
+    chunk's bytes are a 16-byte multiple at a 16-byte aligned address (the
+    bits' base, each item's T_y * T_x bytes and each chunk's F * T_x), else
+    "async" where they are 4-byte words (T_x % 4 == 0 at a 4-byte aligned
+    base), else "bytes". Chosen from the shape and the alignment alone,
+    before the launch."""
+    for frames, stages in WALK_PLANS:
+        smem = K * _walk_smem(T_x, frames, stages)
+        if smem <= MAX_SMEM and T_x <= WALK_MAX_T_X:
+            break
+    else:
+        raise ValueError(f"the ring walk with {K} chains takes at most "
+                         f"{min(WALK_MAX_T_X, (MAX_SMEM // K - 48) // 16 * 16)}"
+                         f" tokens, got {T_x}")
+    if base % 16 == 0 and T_x * T_y % 16 == 0 and frames * T_x % 16 == 0:
+        fetch = "bulk"
+    elif base % 4 == 0 and T_x % 4 == 0:
+        fetch = "async"
+    else:
+        fetch = "bytes"
+    return WALK_THREADS, frames, stages, fetch, smem
+
+
 def _scratch(B, T_y, pitch, planes, device):
     """The device-memory planes of H1 or H13 when `planes` is "global":
     int32 [B, T_y * pitch / 32 + (T_y + 1) // 2] (the plane, then H1's
@@ -322,13 +373,11 @@ def _durations_out(B, T_x, device):
     return torch.empty((B, T_x), dtype=torch.int32, device=device)
 
 
-def _path_out(B, T_x, T_y, device, frame_major, fill):
-    """The output and its [B, T_x, T_y] view. `fill`: zero-filled, for a
-    walk that scatters the ones; else uninitialised, for a kernel that
-    writes every cell."""
+def _path_out(B, T_x, T_y, device, frame_major):
+    """The path's output, which every kernel writes whole: uninitialised
+    f32, and its [B, T_x, T_y] view."""
     shape = (B, T_y, T_x) if frame_major else (B, T_x, T_y)
-    make = torch.zeros if fill else torch.empty
-    out = make(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
     return out, (out.transpose(1, 2) if frame_major else out)
 
 
@@ -412,7 +461,7 @@ def mas_expand(idx: torch.Tensor, T_x: int, *,
         path = mas_expand_plain(idx, T_x)
         return path.transpose(1, 2).contiguous() if frame_major else path
     B, T_y = idx.shape
-    out, view = _path_out(B, T_x, T_y, idx.device, frame_major, fill=False)
+    out, view = _path_out(B, T_x, T_y, idx.device, frame_major)
     if not out.numel():
         return out
     idx = idx.contiguous()
@@ -442,11 +491,13 @@ def mas_backtrack(bits: torch.Tensor, t_x, t_y, *, form: str = "cmp",
       (a ballot of byte != 0 a warp), one thread walks it four frames a
       round, and all threads write the whole path, zeros included, into
       an uninitialised output; with chains=K > 1 the K-chain walk, K items
-      per block, scattering ones into a zero-filled path
-      (mas_pallas_backtrack_nat_multi).
-    form="stage": the staged walk, which writes whole tiles of the path,
-      zeros included, into an uninitialised output
-      (mas_pallas_backtrack_nat, form="stage").
+      per block, each the ring walk below (mas_pallas_backtrack_nat_multi).
+    form="stage": the staged walk (mas_pallas_backtrack_nat,
+      form="stage"), one item a block: a warp streams the bytes, F frames
+      a chunk, into a ring in shared memory ahead of the walk, one thread
+      walks from there, and the other warps write each walked chunk's
+      tile of the path whole, zeros included, into an uninitialised
+      output (`_walk_plan`).
     form="split": an index walk (`mas_walk_idx`) and an expand kernel
       (`mas_expand`), two launches (mas_pallas_backtrack_nat_split).
     """
@@ -459,24 +510,26 @@ def mas_backtrack(bits: torch.Tensor, t_x, t_y, *, form: str = "cmp",
     if not _on_cuda(bits):
         path = _backtrack(bits.permute(1, 0, 2) != 0, t_x, t_y)
         return path.transpose(1, 2).contiguous() if frame_major else path
-    out, view = _path_out(B, T_x, T_y, bits.device, frame_major,
-                          fill=chains > 1)
+    out, view = _path_out(B, T_x, T_y, bits.device, frame_major)
     if not out.numel():
         return out
     if form == "cmp" and chains == 1:
         _launch(None, t_x, t_y, bits, view, None, 0.0, (B, T_x, T_y))
         return out
+    threads, frames, stages, fetch, _ = _walk_plan(T_x, T_y, chains,
+                                                   bits.data_ptr())
     lib = _build.load_library()
     args = (bits.data_ptr(), t_x.data_ptr(), t_y.data_ptr(), out.data_ptr(),
             *view.stride(), B, T_x, T_y)
+    plan = (threads, frames, stages, WALK_FETCHES.index(fetch))
     with torch.cuda.device(bits.device):
         stream = torch.cuda.current_stream().cuda_stream
         if form == "stage":
             name = STAGE_KERNEL
-            err = lib.mas_walk_stage_launch(*args, stream)
+            err = lib.mas_walk_stage_launch(*args, *plan, stream)
         else:
             name = WALK_CHAINS_KERNEL
-            err = lib.mas_walk_chains_launch(*args, chains, stream)
+            err = lib.mas_walk_chains_launch(*args, chains, *plan, stream)
     _build.check(lib, err, name)
     _build.LAUNCHES[name] += 1
     return out
@@ -513,8 +566,7 @@ def mas_path(value: torch.Tensor, t_x, t_y, *,
     if not _on_cuda(value):
         path = mas_plain(value, t_x, t_y, max_neg_val=max_neg_val)
         return path.transpose(1, 2).contiguous() if frame_major else path
-    out, view = _path_out(B, T_x, T_y, value.device, frame_major,
-                          fill=False)
+    out, view = _path_out(B, T_x, T_y, value.device, frame_major)
     if out.numel():
         _launch(value, t_x, t_y, None, view, None, max_neg_val, value.shape)
     return out

@@ -40,7 +40,8 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      step's lattice in both layouts; for H12 also the one library call
      that computes its function (`torch.eq` into a float32 output), which
      the package never calls, by CUDA events and by the profiler's device
-     time of the kernel alone, at B=32 and B=256
+     time of the kernel alone, at B=32 and B=256; H10, H14 and H1's walk
+     alone by the profiler's device time too
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
      atol 1e-6, into an output pre-filled with NaN, and the loss gradient
      on the card against the plain one
@@ -90,10 +91,13 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      `mas_backtrack` as cmp (H1's walk alone), stage (H10), split (H11 +
      H12) and with 2 and 4 chains (H14) equal to `_backtrack`, `mas_plain`,
      the fused H1 and the numpy oracle, bit for bit, in both layouts; H11's
-     indices equal to `mas_walk_idx_plain`; H10 and H12 write into an
-     output pre-filled with NaN, so an unwritten cell shows; every walk
+     indices equal to `mas_walk_idx_plain`; H10, H12 and H14 write into
+     an output pre-filled with NaN, so an unwritten cell shows; every walk
      on bits from elsewhere (bytes above 1, ones in row 0) stays inside
-     the lattice and gives the same path
+     the lattice and gives the same path; H10 and H14 (the ring walk,
+     each plan logged) also from bits 4 and 1 bytes off a 16-byte
+     boundary (its 4-byte and byte fetches), and on the long form B=4 x
+     128x8192 from each fetch
  19. two-pass path with every plain version patched to raise: every route
      of `mas_path(fuse=False)` at B=256, 128x1024, launch counts per
      route, each path equal to the fused kernel's; then
@@ -265,10 +269,9 @@ def mas_outputs_prefilled():
     path_out, bits_out = mk._path_out, mk._bits_out
     durations_out = mk._durations_out
 
-    def paths(*args, fill):
-        out, view = path_out(*args, fill=fill)
-        if not fill:
-            out.fill_(float("nan"))
+    def paths(*args):
+        out, view = path_out(*args)
+        out.fill_(float("nan"))
         return out, view
 
     def bits(*args):
@@ -362,6 +365,9 @@ WALKS = {("cmp", 1): "mas_kernel", ("stage", 1): "mas_walk_stage_kernel",
          ("cmp", 4): "mas_walk_chains_kernel"}
 
 
+RING_WALKS = ("mas_walk_stage_kernel", "mas_walk_chains_kernel")
+
+
 def two_pass_inputs(seed, B, T_x, T_y, dev):
     """A ragged batch with edge items 0-4: t_x = 1; t_x = t_y; t_x > t_y;
     t_x = 0; a full-length item."""
@@ -374,15 +380,14 @@ def two_pass_inputs(seed, B, T_x, T_y, dev):
 
 @contextlib.contextmanager
 def outputs_prefilled_with_nan():
-    """While active, every output that a two-pass kernel must write whole
+    """While active, every path that a two-pass kernel writes whole
     (allocated uninitialised) starts as NaN."""
     from aligner_tpu_torch.ops import mas_kernel as mk
     path_out = mk._path_out
 
-    def prefilled(*args, fill):
-        out, view = path_out(*args, fill=fill)
-        if not fill:
-            out.fill_(float("nan"))
+    def prefilled(*args):
+        out, view = path_out(*args)
+        out.fill_(float("nan"))
         return out, view
 
     with patched_attrs([(mk, "_path_out", prefilled)]):
@@ -491,6 +496,23 @@ def phase_two_pass_kernels(dev):
                               f"foreign bits, {T_x}x{T_y}",
                               mk.mas_backtrack(foreign, tx, ty, form=form,
                                                chains=k), want)
+            plans = [walk_plans(mk, bits)]
+            # The ring walk's other fetches: bits 4 and 1 bytes past a
+            # 16-byte boundary (4-byte cp.async where T_x % 4 == 0, else
+            # byte loads).
+            for offset in (4, 1):
+                moved = shifted(bits, offset)
+                plans.append(walk_plans(mk, moved))
+                for (form, k), kernel in WALKS.items():
+                    if kernel not in RING_WALKS:
+                        continue
+                    for fm in (False, True):
+                        got = mk.mas_backtrack(moved, tx, ty, form=form,
+                                               chains=k, frame_major=fm)
+                        require_equal(f"mas_backtrack form={form} chains={k}"
+                                      f", bits at offset {offset}, frame_"
+                                      f"major={fm}, {T_x}x{T_y}", got,
+                                      want.transpose(1, 2) if fm else want)
         log(18, f"B={B} {T_x}x{T_y} with edge items (t_x=1, t_x=t_y, "
                 f"t_x>t_y, t_x=0, full): mas_bits with 1, 2, 4 chains equal "
                 f"to _forward_bits on every cell (0 off the band and on "
@@ -499,9 +521,39 @@ def phase_two_pass_kernels(dev):
                 f"NaN; mas_backtrack cmp, stage, split, chains=2, "
                 f"chains=4 bit-identical to _backtrack, mas_plain and the "
                 f"fused H1 in both layouts, items 0, 1, 4, 5, 6 to the numpy "
-                f"oracle; H11 indices equal to mas_walk_idx_plain; H10 and "
-                f"H12 left no NaN of the pre-filled output; the same paths "
-                f"from bits with bytes of 3 and ones in row 0")
+                f"oracle; H11 indices equal to mas_walk_idx_plain; H10, H12 "
+                f"and H14 left no NaN of the pre-filled output; the same "
+                f"paths from bits with bytes of 3 and ones in row 0, and "
+                f"(H10, H14) from bits 4 and 1 bytes off a 16-byte boundary; "
+                f"ring walk plans: " + " | ".join(plans))
+    # The long form: a ring of many laps, from each fetch.
+    value, t_x, t_y = ragged(22, 4, T_X, LONG_T_Y)
+    v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+    bits = mk.mas_bits(v, tx, ty)
+    want = mk._backtrack(bits.permute(1, 0, 2) != 0, tx, ty)
+    plans = []
+    with outputs_prefilled_with_nan():
+        for offset in (0, 4, 1):
+            moved = shifted(bits, offset)
+            plans.append(walk_plans(mk, moved))
+            for (form, k), kernel in WALKS.items():
+                if kernel not in RING_WALKS:
+                    continue
+                for fm in (False, True):
+                    got = mk.mas_backtrack(moved, tx, ty, form=form, chains=k,
+                                           frame_major=fm)
+                    torch.cuda.synchronize()
+                    require_equal(f"mas_backtrack form={form} chains={k}, "
+                                  f"long form, bits at offset {offset}, "
+                                  f"frame_major={fm}", got,
+                                  want.transpose(1, 2) if fm else want)
+                    errs[kernel] = max(errs[kernel], float(
+                        (got - (want.transpose(1, 2) if fm else want))
+                        .abs().max()))
+    log(18, f"long form B=4 {T_X}x{LONG_T_Y} (t_y={t_y.tolist()}): "
+            f"mas_backtrack stage, chains=2, chains=4 bit-identical to "
+            f"_backtrack in both layouts over NaN, from bits at offsets 0, "
+            f"4 and 1; ring walk plans: " + " | ".join(plans))
     return errs
 
 
@@ -892,6 +944,7 @@ def phase_times(dev):
                f"item's {int(ty.max())}")
     serving_times(dev)
     expand_device_times(dev)
+    walk_device_times(dev)
     durs_ms = cuda_ms(lambda: mk.mas_durations(v, tx, ty), 20)
     durs_plain = cuda_ms(
         lambda: mk.mas_plain(v, tx, ty).sum(-1).to(torch.int32), 2)
@@ -1128,11 +1181,56 @@ def expand_device_times(dev):
                f"{T_X}x{T_Y}: " + "; ".join(line))
 
 
+def walk_device_times(dev):
+    """H1's walk alone, H10 and H14 (2 and 4 chains) over the same bits
+    at B=32 and B=256, 128x1024, by the profiler's device time of the
+    kernel alone beside CUDA events around each call: at B=32 the events
+    read the host's launch work for the call (about as long as the
+    kernel) more than the card."""
+    from aligner_tpu_torch.ops import mas_kernel as mk
+    for B in (B_MAS, B_SERVE):
+        value, t_x, t_y = ragged(0, B, T_X, T_Y)
+        v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+        bits = mk.mas_bits(v, tx, ty)
+        line = []
+        for name, options, kernel in (
+                ("H1 walk alone", {}, "mas_kernel"),
+                ("H10", {"form": "stage"}, "mas_walk_stage_kernel"),
+                ("H14 K=2", {"chains": 2}, "mas_walk_chains_kernel"),
+                ("H14 K=4", {"chains": 4}, "mas_walk_chains_kernel")):
+            def run(options=options):
+                return mk.mas_backtrack(bits, tx, ty, **options)
+            ms, _ = device_ms(run, 50, kernel)
+            line.append(f"{name} {ms:.4f} ms of device time "
+                        f"({ms * 1e6 / int(ty.max()):.1f} ns a frame), "
+                        f"{cuda_ms(run, 50):.4f} ms by events")
+        log(7, f"walks by device time, B={B} {T_X}x{T_Y}: "
+               + "; ".join(line))
+
+
 # Kernels whose byte bound says nothing: one thread follows a chain of
 # dependent loads and moves a few KB.
 CHAIN_BOUND = ("mas_walk_idx_kernel",)
 WALK_NOTE = ("(no share stated: what bounds it in fact is a chain of up to "
              "{frames} dependent L2 loads per item)")
+
+
+def walk_plans(mk, bits):
+    """H10's and H14's launch plans over `bits`, as they are logged."""
+    B, T_y, T_x = bits.shape
+    plan = [mk._walk_plan(T_x, T_y, k, bits.data_ptr()) for k in (1, 2, 4)]
+    return (f"(threads, frames, stages, fetch, smem) H10 {plan[0]}, H14 "
+            f"K=2 {plan[1]}, K=4 {plan[2]}")
+
+
+def shifted(bits, offset):
+    """A contiguous copy of `bits` whose data starts `offset` bytes past a
+    16-byte boundary, so that the ring walk's plan takes another fetch."""
+    buf = torch.empty(bits.numel() + 16, dtype=torch.uint8,
+                      device=bits.device)
+    out = buf[offset:offset + bits.numel()].view(bits.shape)
+    out.copy_(bits)
+    return out
 
 
 def two_pass_runs(mk, v, tx, ty):
@@ -1169,6 +1267,7 @@ def two_pass_runs(mk, v, tx, ty):
 
     require_equal("torch.eq into float32 vs H12", library_expand(),
                   mk.mas_expand(idx, T_x))
+    log(7, f"ring walk plans at B={B} {T_x}x{T_y}: {walk_plans(mk, bits)}")
 
     kernels = {
         "mas_walk_stage_kernel": (

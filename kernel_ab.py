@@ -1,5 +1,5 @@
-"""A/B of the MAS kernels H1 and H13 and the MoBo boundary kernel H8
-between source trees, on one card.
+"""A/B of the MAS kernels H1, H10, H13 and H14 and the MoBo boundary
+kernel H8 between source trees, on one card.
 
     python3 kernel_ab.py [--sass] TREE [TREE ...]
 
@@ -15,6 +15,12 @@ root builds that tree's kernels and times them with CUDA events (mean of
     through a natural-shaped view (rows), and H1's forward alone
     (`mas_bits`) at B=32 and B=256, 128x1024 ragged;
   * H13 (`mas_bits(chains=2)` and `chains=4`) at B=32;
+  * the walks over `mas_bits`' bytes at B=32 and B=256, 128x1024 ragged:
+    H1's walk alone (`mas_backtrack`), H10 (`form="stage"`) and H14
+    (`chains=2` and `chains=4`), by the profiler's device time of every
+    kernel a call launches (a tree's zero fill included where its walk
+    needs one), beside CUDA events around the call, which at B=32 read
+    the host's launch work for the call more than the card;
   * H8 (`mobo_bp`) at B=16, 64, 128, 133 and 256, 128 tokens x 1025
     positions, D=32, and at B=16, D=1; where the tree has H8's wide form
     (`_bp_plan` giving C = 0), also forced into it;
@@ -87,6 +93,23 @@ def run_tree(label):
     v, tx, ty = mas_inputs(cs.B_MAS)
     rows = v.transpose(1, 2).contiguous().transpose(1, 2)
     v2, tx2, ty2 = mas_inputs(cs.B_SERVE)
+    walks = {}
+    for B, (vb, txb, tyb) in ((cs.B_MAS, (v, tx, ty)),
+                              (cs.B_SERVE, (v2, tx2, ty2))):
+        bits = mk.mas_bits(vb, txb, tyb)
+        for name, options in (("H1 walk alone", {}),
+                              ("H10", {"form": "stage"}),
+                              ("H14 K=2", {"chains": 2}),
+                              ("H14 K=4", {"chains": 4})):
+            walks[f"{name} B={B}"] = (
+                lambda bits=bits, txb=txb, tyb=tyb, options=options:
+                mk.mas_backtrack(bits, txb, tyb, **options))
+    for rep in range(3):
+        for name, fn in walks.items():
+            ms, kernels = cs.device_ms(fn, 20)
+            print(f"{label} rep {rep}: {name} {ms:.4f} ms of device time "
+                  f"(kernels {kernels}), {cs.cuda_ms(fn, 20):.4f} ms by "
+                  f"events", flush=True)
     runs = {
         "H1 fused, natural": lambda: mk.mas_path(v, tx, ty),
         "H1 fused, frame-major storage": lambda: mk.mas_path(rows, tx, ty),

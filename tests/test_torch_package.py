@@ -291,10 +291,9 @@ def mas_outputs_prefilled(monkeypatch):
     bits_out = mas_kernel._bits_out
     durations_out = mas_kernel._durations_out
 
-    def paths(*args, fill):
-        out, view = path_out(*args, fill=fill)
-        if not fill:
-            out.fill_(float("nan"))
+    def paths(*args):
+        out, view = path_out(*args)
+        out.fill_(float("nan"))
         return out, view
 
     def bits(*args):
@@ -416,6 +415,68 @@ def test_chains_forward_writes_every_byte(cuda, mas_outputs_prefilled, seed,
         assert fetch != "tiles" or contiguous
         torch.testing.assert_close(
             mas_kernel.mas_bits(lattice, tx, ty, chains=chains), want,
+            rtol=0, atol=0)
+
+
+def shifted(bits, offset):
+    """A contiguous copy of `bits` whose data starts `offset` bytes past a
+    16-byte boundary."""
+    buf = torch.empty(bits.numel() + 16, dtype=torch.uint8,
+                      device=bits.device)
+    out = buf[offset:offset + bits.numel()].view(bits.shape)
+    out.copy_(bits)
+    return out
+
+
+RING_WALKS = {"stage": {"form": "stage"}, "chains2": {"chains": 2},
+              "chains4": {"chains": 4}}
+
+
+# H10 and H14, the ring walk (csrc/mas_walk.cuh), over NaN: each fetch
+# (bits at a 16-byte boundary: bulk where the shape allows it; 4 bytes
+# past it: 4-byte cp.async where T_x % 4 == 0; 1 byte past it: byte
+# loads); rings of 4 stages of 128-frame chunks (64 at K = 4) that hold
+# one partial chunk (T_y = 40), exactly one lap (256 at K = 4, 512 at
+# K <= 2), more than a lap with a partial chunk (300 at K = 4, 600; T_x %
+# 4 != 0, or a bulk copy whose chunks are 16-byte multiples only as whole
+# chunks), several laps (1024), and a column past 8192 tokens (four, two
+# or one frames a chunk; at one, 8200 bytes are no multiple of 16 and
+# 4-byte copies serve). Item 0 has t_x > t_y, the last t_x = 0.
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(RING_WALKS))
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("seed,B,T_x,T_y", [(60, 4, 16, 40),
+                                            (61, 4, 32, 256),
+                                            (62, 4, 32, 512),
+                                            (63, 4, 20, 600),
+                                            (64, 8, 45, 300),
+                                            (65, 4, 128, 1024),
+                                            (66, 4, 8200, 100)])
+def test_ring_walk_matches_plain(cuda, mas_outputs_prefilled, route, offset,
+                                 seed, B, T_x, T_y):
+    """Bit-identical to the plain walk in both layouts, every cell written
+    over NaN, also on bits from elsewhere (bytes of 3, ones at token 0)."""
+    options = RING_WALKS[route]
+    value, t_x, t_y = ragged(seed, B, T_x, T_y)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    bits = mas_kernel.mas_bits(v, tx, ty)
+    foreign = bits * 3
+    foreign[:, :, 0] = 1
+    for given in (bits, foreign):
+        moved = shifted(given, offset)
+        _, frames, _, fetch, _ = mas_kernel._walk_plan(
+            T_x, T_y, options.get("chains", 1), moved.data_ptr())
+        assert fetch == ("bulk" if offset == 0 and T_x * T_y % 16 == 0
+                         and frames * T_x % 16 == 0
+                         else "async" if offset != 1 and T_x % 4 == 0
+                         else "bytes")
+        want = mas_kernel._backtrack(given.permute(1, 0, 2) != 0, tx, ty)
+        torch.testing.assert_close(
+            mas_kernel.mas_backtrack(moved, tx, ty, **options), want,
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            mas_kernel.mas_backtrack(moved, tx, ty, frame_major=True,
+                                     **options), want.transpose(1, 2),
             rtol=0, atol=0)
 
 

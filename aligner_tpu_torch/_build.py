@@ -66,7 +66,8 @@ _SIGNATURES = {
                          _I32, _I32, _I32, _P],
     "mas_walk_stage_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                               _I32, _I32, _I32, _I32, _I32, _P],
-    "mas_walk_idx_launch": [_P, _P, _P, _P, _I32, _I32, _I32, _P],
+    "mas_walk_idx_launch": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                            _I32, _I32, _P],
     "mas_expand_launch": [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
     "mas_bits_chains_launch": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I32,
                                _I32, _I32, _I32, _I32, _I32, _I32, _I32,

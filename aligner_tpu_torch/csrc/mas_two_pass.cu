@@ -28,22 +28,24 @@
 // steps per item; what the variants change is where the chain reads its
 // bytes, how the path gets to memory and how many chains a block keeps in
 // flight:
-//  - the staged walk and the K-chain walk share csrc/mas_walk.cuh: a
-//    producer warp streams the item's bytes, F frames a chunk, into a ring
-//    of S stages in shared memory ahead of the walk (one cp.async.bulk a
-//    chunk where the alignment allows it); one thread walks from there,
-//    reading four frames' words before their steps, so no step waits on
-//    the L2; storer warps write each walked chunk's tile of the path whole,
-//    zeros included, into an uninitialised output. The staged walk runs
-//    one such group a block, B blocks; the K-chain walk K groups a block,
-//    one item each, B / K blocks. What is left on the chain is a shared
-//    read and a few integer operations a frame, and the path's bytes;
-//  - the expand kernel writes every cell of the path, zeros included,
-//    coalesced along frames, into an uninitialised output;
-//  - the split form moves the walk into a kernel that writes four bytes
-//    per frame (one thread per item, a chain of dependent one-byte loads
-//    from the L2), and the path into a kernel with no carry at all, which
-//    is bounded by the bytes of the path alone;
+//  - the staged walk, the K-chain walk and the index walk share
+//    csrc/mas_walk.cuh: a producer warp streams the item's bytes, F frames
+//    a chunk, into a ring of S stages in shared memory ahead of the walk
+//    (one cp.async.bulk a chunk where the alignment allows it); one thread
+//    walks from there, reading four frames' words before their steps, so
+//    no step waits on the L2; storer warps write each walked chunk's
+//    frames whole into an uninitialised output. The staged walk runs one
+//    such group a block, B blocks, and writes the path's tiles, zeros
+//    included; the K-chain walk K groups a block, one item each, B / K
+//    blocks. What is left on the chain is a shared read and a few integer
+//    operations a frame, and the path's bytes;
+//  - the split form moves the walk into the index walk, one group of
+//    three warps (walker, producer, one storer) a block, B blocks, which
+//    writes four bytes per frame, four frames a store; its time is the
+//    walker's chain alone. The path goes into the expand kernel, which has
+//    no carry at all and writes every cell, zeros included, coalesced
+//    along frames, into an uninitialised output: it is bounded by the
+//    bytes of the path alone;
 //  - the K-chain forward runs K of H1's forward chains a block
 //    (csrc/mas_forward.cuh), each over its own item behind its own named
 //    barrier, so that no chain waits for a longer item; its bits go into a
@@ -61,24 +63,16 @@
 
 namespace {
 
-constexpr int kIdxWarps = 4;        // items per block of the index walk
 constexpr int kExpandThreads = 128;
 constexpr int kExpandFrames = 4;    // frames per thread of the expand kernel
 constexpr int kExpandRows = 32;     // token rows per block of the expand kernel
-
-// One step of the walk: down a token where the bit is set. Any non-zero
-// byte counts as set and row 0 never steps, so bits that did not come from
-// the forward kernels cannot take the walk out of the lattice.
-__device__ __forceinline__ int step(uint8_t bit, int index) {
-  return index - ((bit != 0 && index > 0) ? 1 : 0);
-}
 
 __device__ __forceinline__ bool valid_item(int tx, int ty, int T_x, int T_y) {
   return tx >= 1 && tx <= ty && tx <= T_x && ty <= T_y;
 }
 
 // Staged walk. One block per item: the ring walk of csrc/mas_walk.cuh
-// with the whole block as its group.
+// with the whole block as its group, writing the path's tiles.
 __global__ void __launch_bounds__(1024) mas_walk_stage_kernel(
     const uint8_t* __restrict__ bits, const int* __restrict__ t_x,
     const int* __restrict__ t_y, float* __restrict__ path, long long sp_b,
@@ -89,34 +83,27 @@ __global__ void __launch_bounds__(1024) mas_walk_stage_kernel(
   const int tx = t_x[b];
   const int ty = t_y[b];
   ring_walk(bits + static_cast<long long>(b) * T_y * T_x, tx, ty,
-            valid_item(tx, ty, T_x, T_y), path + b * sp_b, sp_x, sp_y, T_x,
-            T_y, frames, stages, fetch, walk_smem_bytes, 0, BlockGroup{});
+            valid_item(tx, ty, T_x, T_y), T_x, T_y, frames, stages, fetch,
+            walk_smem_bytes, 0, BlockGroup{},
+            TileStore{path + b * sp_b, sp_x, sp_y, T_x});
 }
 
-// Index walk. One warp per item: lane 0 follows the bits and writes token
-// index + 1 for each frame below t_y; all lanes write 0 for the frames
-// from t_y on (every frame of an invalid item), so the whole row is
-// written.
-__global__ void mas_walk_idx_kernel(const uint8_t* __restrict__ bits,
-                                    const int* __restrict__ t_x,
-                                    const int* __restrict__ t_y,
-                                    int* __restrict__ idx, int B, int T_x,
-                                    int T_y) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x * kIdxWarps + threadIdx.x / 32;
-  if (b >= B) return;
+// Index walk. One block per item: the ring walk of csrc/mas_walk.cuh with
+// the whole block as its group (a walker, a producer and one storer warp),
+// writing the item's row of idx: token index + 1 for each frame below t_y,
+// 0 from t_y on and on every frame of an invalid item.
+__global__ void __launch_bounds__(1024) mas_walk_idx_kernel(
+    const uint8_t* __restrict__ bits, const int* __restrict__ t_x,
+    const int* __restrict__ t_y, int* __restrict__ idx, int T_x, int T_y,
+    int frames, int stages, int fetch) {
+  extern __shared__ __align__(16) unsigned char walk_smem_bytes[];
+  const int b = blockIdx.x;
   const int tx = t_x[b];
   const int ty = t_y[b];
-  const bool valid = valid_item(tx, ty, T_x, T_y);
-  int* out = idx + static_cast<long long>(b) * T_y;
-  for (int y = (valid ? ty : 0) + lane; y < T_y; y += 32) out[y] = 0;
-  if (lane != 0 || !valid) return;
-  const uint8_t* bits_b = bits + static_cast<long long>(b) * T_y * T_x;
-  int index = tx - 1;
-  for (int y = ty - 1; y >= 0; --y) {
-    out[y] = index + 1;
-    index = step(bits_b[static_cast<long long>(y) * T_x + index], index);
-  }
+  ring_walk(bits + static_cast<long long>(b) * T_y * T_x, tx, ty,
+            valid_item(tx, ty, T_x, T_y), T_x, T_y, frames, stages, fetch,
+            walk_smem_bytes, 0, BlockGroup{},
+            IdxStore{idx + static_cast<long long>(b) * T_y});
 }
 
 // Expand. path[b,x,y] = (x + 1 == idx[b,y]), every cell written, no carry.
@@ -259,9 +246,9 @@ __global__ void __launch_bounds__(1024) mas_walk_chains_kernel(
   const ChainGroup chain{1 + c, static_cast<unsigned>(c * per),
                          static_cast<unsigned>(per)};
   ring_walk(bits + static_cast<long long>(b) * T_y * T_x, tx, ty,
-            valid_item(tx, ty, T_x, T_y), path + b * sp_b, sp_x, sp_y, T_x,
-            T_y, frames, stages, fetch,
-            walk_smem_bytes + c * walk_smem(T_x, frames, stages), c, chain);
+            valid_item(tx, ty, T_x, T_y), T_x, T_y, frames, stages, fetch,
+            walk_smem_bytes + c * walk_smem(T_x, frames, stages), c, chain,
+            TileStore{path + b * sp_b, sp_x, sp_y, T_x});
 }
 
 }  // namespace
@@ -318,15 +305,17 @@ extern "C" int mas_walk_stage_launch(const uint8_t* bits, const int* t_x,
       sp_b, sp_x, sp_y, T_x, T_y, frames, stages, fetch));
 }
 
-// idx: int32 [B, T_y], uninitialised; every cell is written.
+// idx: int32 [B, T_y], uninitialised; every cell is written. threads,
+// frames, stages and fetch are the wrapper's plan (ops/mas_kernel.py:
+// _walk_plan with K = 1 and IDX_WALK_THREADS).
 extern "C" int mas_walk_idx_launch(const uint8_t* bits, const int* t_x,
                                    const int* t_y, int* idx, int B, int T_x,
-                                   int T_y, void* stream) {
-  const int blocks = (B + kIdxWarps - 1) / kIdxWarps;
-  mas_walk_idx_kernel<<<blocks, 32 * kIdxWarps, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      bits, t_x, t_y, idx, B, T_x, T_y);
-  return static_cast<int>(cudaGetLastError());
+                                   int T_y, int threads, int frames,
+                                   int stages, int fetch, void* stream) {
+  return static_cast<int>(ring_walk_launch(
+      mas_walk_idx_kernel, bits, T_x, T_y, 1, threads, frames, stages, fetch,
+      B, static_cast<cudaStream_t>(stream), bits, t_x, t_y, idx, T_x, T_y,
+      frames, stages, fetch));
 }
 
 // idx: int32 [B, T_y]; path: uninitialised; every cell is written.

@@ -1,8 +1,11 @@
-// The walk that H10 (mas_walk_stage_kernel) and H14 (mas_walk_chains_kernel)
-// share, in csrc/mas_two_pass.cu: a group of whole warps walks one item
-// from its uint8 decision bits [T_y, T_x] and writes every cell of its
-// path. H10 runs one group a block (BlockGroup), H14 K groups a block, one
-// item each (ChainGroup), as H1 and H13 share csrc/mas_forward.cuh.
+// The walk that H10 (mas_walk_stage_kernel), H14 (mas_walk_chains_kernel)
+// and H11 (mas_walk_idx_kernel) share, in csrc/mas_two_pass.cu: a group of
+// whole warps walks one item from its uint8 decision bits [T_y, T_x] and
+// writes every frame of its output. H10 and H11 run one group a block
+// (BlockGroup), H14 K groups a block, one item each (ChainGroup), as H1
+// and H13 share csrc/mas_forward.cuh. What the storers write is the
+// walk's store policy: the path's [T_x, F] tile of each chunk (TileStore:
+// H10, H14) or the item's int32 index row (IdxStore: H11).
 //
 // Frames are taken in chunks of F, from the chunk that holds frame t_y - 1
 // down to frame 0; within an item chunk k's bytes are the contiguous range
@@ -21,12 +24,15 @@
 //    reads a stage it has not waited for. Each frame's token (int16) goes
 //    into token stage k % S;
 //  - the storer warps, one chunk behind the walker, write the chunk's
-//    [T_x, F] tile of the path whole, zeros included, four floats a store
-//    along the axis of stride 1. They first write the chunks at or past
-//    t_y, which need neither bytes nor a walk.
+//    frames through the store policy: the path's tile whole, zeros
+//    included, four floats a store along the axis of stride 1; or the
+//    index row, four frames a store where the address allows. They first
+//    write the chunks at or past t_y, which need neither bytes nor a walk.
 // An invalid item (outside 1 <= t_x <= t_y, or lengths beyond the lattice)
-// loads no bytes and gets zeros; frames >= t_y are 0. The step rule is
-// mas_two_pass.cu's: any non-zero byte counts as set, token 0 never steps.
+// loads no bytes and gets zeros; frames >= t_y are 0. A step goes down a
+// token where the bit is set: any non-zero byte counts as set and token 0
+// never steps, so bits that did not come from the forward kernels cannot
+// take the walk out of the lattice.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,6 +166,50 @@ __device__ __forceinline__ void walk_store_tile(float* p, long long sp_x,
   }
 }
 
+// Frames [y0, y0 + nf) of the item's index row: token + 1 as int32, 0
+// where tok(r) gives -1 (no token). Thread t of n; one frame a store up to
+// the first 16-byte aligned frame, then four frames a store (streamed
+// past the caches), then one a store for the frames left over.
+template <class Tok>
+__device__ __forceinline__ void walk_store_idx(int* row, int y0, int nf,
+                                               Tok tok, int t, int n) {
+  int* const q = row + y0;
+  const int head =
+      min(nf, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(q) & 15)) &
+                               15) / 4);
+  const int quads = (nf - head) / 4;
+  for (int c = t; c < quads; c += n) {
+    const int r = head + 4 * c;
+    __stcs(reinterpret_cast<int4*>(q + r),
+           make_int4(tok(r) + 1, tok(r + 1) + 1, tok(r + 2) + 1,
+                     tok(r + 3) + 1));
+  }
+  for (int r = t; r < head; r += n) q[r] = tok(r) + 1;
+  for (int r = head + 4 * quads + t; r < nf; r += n) q[r] = tok(r) + 1;
+}
+
+// The store policies of ring_walk: store(y0, nf, tok, t, n) writes frames
+// [y0, y0 + nf) as thread t of n storers, tok(r) giving frame y0 + r's
+// token or -1.
+struct TileStore {  // the path, read through strides sp_x, sp_y
+  float* p;
+  long long sp_x, sp_y;
+  int T_x;
+  template <class Tok>
+  __device__ __forceinline__ void operator()(int y0, int nf, Tok tok, int t,
+                                             int n) const {
+    walk_store_tile(p, sp_x, sp_y, T_x, y0, nf, tok, t, n);
+  }
+};
+struct IdxStore {  // the item's int32 [T_y] index row
+  int* row;
+  template <class Tok>
+  __device__ __forceinline__ void operator()(int y0, int nf, Tok tok, int t,
+                                             int n) const {
+    walk_store_idx(row, y0, nf, tok, t, n);
+  }
+};
+
 // One step of the walk from the stage's word holding byte offset o.
 __device__ __forceinline__ int walk_step(unsigned word, int o, int index) {
   const unsigned byte = __byte_perm(word, 0u, 0x4440u | (o & 3));  // 0-extended
@@ -167,16 +217,16 @@ __device__ __forceinline__ int walk_step(unsigned word, int o, int index) {
 }
 
 // The walk of item `bits` (its [T_y, T_x] bytes) with lengths tx, ty
-// (valid: 1 <= tx <= ty, both within the lattice) into the path p, read
-// through strides sp_x, sp_y, by the group g. smem: the group's
+// (valid: 1 <= tx <= ty, both within the lattice) by the group g, its
+// frames written through the store policy `store`. smem: the group's
 // walk_smem(T_x, F, S) bytes, 16-byte aligned. rot: the group's index in
 // the block, which rotates its roles over the SM's four schedulers. Every
 // thread of the group calls it; the group has at least three warps.
-template <class Group>
+template <class Group, class Store>
 __device__ void ring_walk(const uint8_t* bits, int tx, int ty, bool valid,
-                          float* p, long long sp_x, long long sp_y, int T_x,
-                          int T_y, int F, int S, int fetch,
-                          unsigned char* smem, int rot, Group g) {
+                          int T_x, int T_y, int F, int S, int fetch,
+                          unsigned char* smem, int rot, Group g,
+                          Store store) {
   uint64_t* const full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* const empty = full + S;
   uint64_t* const tfull = empty + S;
@@ -301,8 +351,8 @@ __device__ void ring_walk(const uint8_t* bits, int tx, int ty, bool valid,
     // The chunks at or past t_y (every chunk of an invalid item): zeros.
     const int chunks = (T_y + F - 1) / F;
     for (int c = n; c < chunks; ++c)
-      walk_store_tile(p, sp_x, sp_y, T_x, c * F, min(F, T_y - c * F),
-                      [](int) { return -1; }, st_id, storers);
+      store(c * F, min(F, T_y - c * F), [](int) { return -1; }, st_id,
+            storers);
     for (int k = 0; k < n; ++k) {
       const int s = k % S;
       const unsigned phase = (k / S) & 1;
@@ -310,9 +360,9 @@ __device__ void ring_walk(const uint8_t* bits, int tx, int ty, bool valid,
       const short* const tk = tokens + s * F;
       const int live = min(F, ty - y0);
       walk_bar_wait(&tfull[s], phase);
-      walk_store_tile(p, sp_x, sp_y, T_x, y0, min(F, T_y - y0),
-                      [&](int r) { return r < live ? int(tk[r]) : -1; },
-                      st_id, storers);
+      store(y0, min(F, T_y - y0),
+            [&](int r) { return r < live ? int(tk[r]) : -1; }, st_id,
+            storers);
       walk_bar_arrive(&tempty[s]);
     }
   }

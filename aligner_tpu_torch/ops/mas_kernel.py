@@ -62,7 +62,7 @@ MAS_PLANS = (
     (4, 8, "global", "rows"),
     (8, 4, "shared", "rows"), (8, 4, "global", "rows"))
 FETCHES = ("rows", "tiles", "wide")   # the launch's fetch codes
-# (frames a chunk F, stages S) of H10's and H14's ring walk, the plans
+# (frames a chunk F, stages S) of the ring walk (H10, H11, H14), the plans
 # `kWalkPlans` in csrc/mas_walk.cuh builds, in order of preference: the
 # deepest chunks whose K rings fit a block's shared memory. F = 1 frame
 # behind a single stage still takes H1's widest column with 4 chains.
@@ -72,6 +72,7 @@ WALK_PLANS = ((128, 4), (64, 4), (32, 4), (16, 4), (8, 4), (4, 4), (2, 4),
 # cp.async a lane ("async"), or byte loads ("bytes"); the launch's codes.
 WALK_FETCHES = ("bulk", "async", "bytes")
 WALK_THREADS = 256    # a walk group: a walker, a producer, 6 storer warps
+IDX_WALK_THREADS = 96  # H11's group: its one storer warp writes 4 B a frame
 WALK_MAX_T_X = 32767  # the walk's tokens are int16
 
 
@@ -297,12 +298,13 @@ def _walk_smem(T_x: int, frames: int, stages: int) -> int:
             + _round16(2 * stages * frames))
 
 
-def _walk_plan(T_x: int, T_y: int, K: int, base: int
+def _walk_plan(T_x: int, T_y: int, K: int, base: int,
+               threads: int = WALK_THREADS
                ) -> tuple[int, int, int, str, int]:
     """(threads a chain, frames a chunk F, stages S, fetch, shared-memory
-    bytes) of H10 (K = 1) and H14 (K chains a block) over uint8 bits
-    [B, T_y, T_x] at address `base`: the first plan of WALK_PLANS whose K
-    rings fit a block's shared memory. fetch is "bulk" exactly where every
+    bytes) of H10 (K = 1), H14 (K chains a block) and H11 (K = 1, threads
+    IDX_WALK_THREADS) over uint8 bits [B, T_y, T_x] at address `base`: the
+    first plan of WALK_PLANS whose K rings fit a block's shared memory. fetch is "bulk" exactly where every
     chunk's bytes are a 16-byte multiple at a 16-byte aligned address (the
     bits' base, each item's T_y * T_x bytes and each chunk's F * T_x), else
     "async" where they are 4-byte words (T_x % 4 == 0 at a 4-byte aligned
@@ -322,7 +324,7 @@ def _walk_plan(T_x: int, T_y: int, K: int, base: int
         fetch = "async"
     else:
         fetch = "bytes"
-    return WALK_THREADS, frames, stages, fetch, smem
+    return threads, frames, stages, fetch, smem
 
 
 def _scratch(B, T_y, pitch, planes, device):
@@ -371,6 +373,12 @@ def _durations_out(B, T_x, device):
     """H1's durations output, which it writes whole: uninitialised int32
     [B, T_x]."""
     return torch.empty((B, T_x), dtype=torch.int32, device=device)
+
+
+def _idx_out(B, T_y, device):
+    """H11's index output, which it writes whole: uninitialised int32
+    [B, T_y]."""
+    return torch.empty((B, T_y), dtype=torch.int32, device=device)
 
 
 def _path_out(B, T_x, T_y, device, frame_major):
@@ -431,19 +439,25 @@ def mas_bits(value: torch.Tensor, t_x, t_y, *, chains: int = 1,
 def mas_walk_idx(bits: torch.Tensor, t_x, t_y) -> torch.Tensor:
     """The walk half of the split form: uint8 bits [B, T_y, T_x] -> int32
     [B, T_y], token index + 1 per frame and 0 for no emission (see
-    `mas_walk_idx_plain`, its version for a CPU tensor)."""
+    `mas_walk_idx_plain`, its version for a CPU tensor). On a CUDA tensor
+    H11, the ring walk with `_walk_plan`'s frames, stages and fetch and a
+    group of IDX_WALK_THREADS, one item a block; columns past WALK_MAX_T_X
+    tokens raise ValueError."""
     if not _on_cuda(bits):
         return mas_walk_idx_plain(bits, t_x, t_y)
     t_x, t_y = _check_bits(bits, t_x, t_y)
     B, T_y, T_x = bits.shape
-    idx = torch.empty((B, T_y), dtype=torch.int32, device=bits.device)
+    idx = _idx_out(B, T_y, bits.device)
     if not bits.numel():
         return idx.zero_()
+    threads, frames, stages, fetch, _ = _walk_plan(
+        T_x, T_y, 1, bits.data_ptr(), threads=IDX_WALK_THREADS)
     lib = _build.load_library()
     with torch.cuda.device(bits.device):
         err = lib.mas_walk_idx_launch(
             bits.data_ptr(), t_x.data_ptr(), t_y.data_ptr(), idx.data_ptr(),
-            B, T_x, T_y, torch.cuda.current_stream().cuda_stream)
+            B, T_x, T_y, threads, frames, stages, WALK_FETCHES.index(fetch),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, IDX_KERNEL)
     _build.LAUNCHES[IDX_KERNEL] += 1
     return idx
@@ -498,8 +512,10 @@ def mas_backtrack(bits: torch.Tensor, t_x, t_y, *, form: str = "cmp",
       walks from there, and the other warps write each walked chunk's
       tile of the path whole, zeros included, into an uninitialised
       output (`_walk_plan`).
-    form="split": an index walk (`mas_walk_idx`) and an expand kernel
-      (`mas_expand`), two launches (mas_pallas_backtrack_nat_split).
+    form="split": an index walk (`mas_walk_idx`: the ring walk of
+      form="stage" with one storer warp, which writes int32 token + 1 a
+      frame instead of the path) and an expand kernel (`mas_expand`), two
+      launches (mas_pallas_backtrack_nat_split).
     """
     t_x, t_y = _check_bits(bits, t_x, t_y)
     B, T_y, T_x = bits.shape

@@ -40,8 +40,9 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      step's lattice in both layouts; for H12 also the one library call
      that computes its function (`torch.eq` into a float32 output), which
      the package never calls, by CUDA events and by the profiler's device
-     time of the kernel alone, at B=32 and B=256; H10, H14 and H1's walk
-     alone by the profiler's device time too
+     time of the kernel alone, at B=32 and B=256; H10, H11, H14 and H1's
+     walk alone by the profiler's device time too, H11 beside its chain
+     (its longest item's frames at H10's step at B=32)
   8. H3 (forward-sum beta/posterior) against gamma_plain, rtol 1e-5 /
      atol 1e-6, into an output pre-filled with NaN, and the loss gradient
      on the card against the plain one
@@ -91,13 +92,14 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      `mas_backtrack` as cmp (H1's walk alone), stage (H10), split (H11 +
      H12) and with 2 and 4 chains (H14) equal to `_backtrack`, `mas_plain`,
      the fused H1 and the numpy oracle, bit for bit, in both layouts; H11's
-     indices equal to `mas_walk_idx_plain`; H10, H12 and H14 write into
-     an output pre-filled with NaN, so an unwritten cell shows; every walk
-     on bits from elsewhere (bytes above 1, ones in row 0) stays inside
-     the lattice and gives the same path; H10 and H14 (the ring walk,
-     each plan logged) also from bits 4 and 1 bytes off a 16-byte
-     boundary (its 4-byte and byte fetches), and on the long form B=4 x
-     128x8192 from each fetch
+     indices equal to `mas_walk_idx_plain` on every frame, written over
+     rows of 0x7F7F7F7F; H10, H12 and H14 write into an output pre-filled
+     with NaN, so an unwritten cell shows; every walk on bits from
+     elsewhere (bytes above 1, ones in row 0) stays inside the lattice and
+     gives the same path; H10, H11 and H14 (the ring walk, each plan
+     logged) also from bits 4 and 1 bytes off a 16-byte boundary (its
+     4-byte and byte fetches), and on the long form B=4 x 128x8192 from
+     each fetch
  19. two-pass path with every plain version patched to raise: every route
      of `mas_path(fuse=False)` at B=256, 128x1024, launch counts per
      route, each path equal to the fused kernel's; then
@@ -379,19 +381,49 @@ def two_pass_inputs(seed, B, T_x, T_y, dev):
 
 
 @contextlib.contextmanager
-def outputs_prefilled_with_nan():
-    """While active, every path that a two-pass kernel writes whole
-    (allocated uninitialised) starts as NaN."""
+def two_pass_outputs_prefilled():
+    """While active, every output that a two-pass kernel writes whole
+    (allocated uninitialised) starts as garbage: paths NaN, H11's index
+    rows 0x7F7F7F7F."""
     from aligner_tpu_torch.ops import mas_kernel as mk
     path_out = mk._path_out
+    idx_out = mk._idx_out
 
     def prefilled(*args):
         out, view = path_out(*args)
         out.fill_(float("nan"))
         return out, view
 
-    with patched_attrs([(mk, "_path_out", prefilled)]):
+    with patched_attrs([(mk, "_path_out", prefilled),
+                        (mk, "_idx_out",
+                         lambda *args: idx_out(*args).fill_(0x7F7F7F7F))]):
         yield
+
+
+def idx_walk_checks(mk, bits, tx, ty, where):
+    """H11 against `mas_walk_idx_plain` on every frame, into rows
+    pre-filled with garbage (inside `two_pass_outputs_prefilled`), from
+    bits 0, 4 and 1 bytes off a 16-byte boundary (its bulk, 4-byte and
+    byte fetches where the shape allows them) and from bits from elsewhere
+    (bytes of 3, ones at token 0). Returns (max abs error, unequal cells,
+    the fetches taken)."""
+    foreign = bits * 3
+    foreign[:, :, 0] = 1
+    B, T_y, T_x = bits.shape
+    err, unequal, fetches = 0.0, 0, []
+    for given in (bits, foreign):
+        want = mk.mas_walk_idx_plain(given, tx, ty)
+        for offset in (0, 4, 1):
+            moved = shifted(given, offset)
+            fetches.append(mk._walk_plan(T_x, T_y, 1, moved.data_ptr(),
+                                         threads=mk.IDX_WALK_THREADS)[3])
+            got = mk.mas_walk_idx(moved, tx, ty)
+            torch.cuda.synchronize()
+            unequal += int((got != want).sum())
+            err = max(err, float((got - want).abs().max()))
+            require_equal(f"H11 indices, {where}, bits at offset {offset}",
+                          got, want)
+    return err, unequal, fetches
 
 
 @contextlib.contextmanager
@@ -468,13 +500,11 @@ def phase_two_pass_kernels(dev):
             if not np.array_equal(want[i].cpu().numpy().astype(np.int32),
                                   oracle):
                 raise AssertionError(f"mas_plain item {i} vs oracle")
-        idx = mk.mas_walk_idx(bits, tx, ty)
-        want_idx = mk.mas_walk_idx_plain(bits, tx, ty)
-        require_equal(f"H11 indices, {T_x}x{T_y}", idx, want_idx)
-        errs["mas_walk_idx_kernel"] = max(
-            errs["mas_walk_idx_kernel"],
-            float((idx - want_idx).abs().max()))
-        with outputs_prefilled_with_nan():
+        with two_pass_outputs_prefilled():
+            err, unequal, idx_fetches = idx_walk_checks(
+                mk, bits, tx, ty, f"B={B} {T_x}x{T_y}")
+            errs["mas_walk_idx_kernel"] = max(errs["mas_walk_idx_kernel"],
+                                              err)
             for (form, k), kernel in WALKS.items():
                 got = mk.mas_backtrack(bits, tx, ty, form=form, chains=k)
                 fm = mk.mas_backtrack(bits, tx, ty, form=form, chains=k,
@@ -521,18 +551,24 @@ def phase_two_pass_kernels(dev):
                 f"NaN; mas_backtrack cmp, stage, split, chains=2, "
                 f"chains=4 bit-identical to _backtrack, mas_plain and the "
                 f"fused H1 in both layouts, items 0, 1, 4, 5, 6 to the numpy "
-                f"oracle; H11 indices equal to mas_walk_idx_plain; H10, H12 "
-                f"and H14 left no NaN of the pre-filled output; the same "
-                f"paths from bits with bytes of 3 and ones in row 0, and "
-                f"(H10, H14) from bits 4 and 1 bytes off a 16-byte boundary; "
-                f"ring walk plans: " + " | ".join(plans))
+                f"oracle; H11 indices equal to mas_walk_idx_plain over rows "
+                f"of 0x7F7F7F7F, {unequal} unequal cells, fetches "
+                f"{idx_fetches} (bits, then bytes of 3 and ones in row 0, at "
+                f"offsets 0, 4, 1); H10, H12 and H14 left no NaN of the "
+                f"pre-filled output; the same paths from bits with bytes of "
+                f"3 and ones in row 0, and (H10, H14) from bits 4 and 1 "
+                f"bytes off a 16-byte boundary; ring walk plans: "
+                + " | ".join(plans))
     # The long form: a ring of many laps, from each fetch.
     value, t_x, t_y = ragged(22, 4, T_X, LONG_T_Y)
     v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
     bits = mk.mas_bits(v, tx, ty)
     want = mk._backtrack(bits.permute(1, 0, 2) != 0, tx, ty)
     plans = []
-    with outputs_prefilled_with_nan():
+    with two_pass_outputs_prefilled():
+        err, unequal, idx_fetches = idx_walk_checks(
+            mk, bits, tx, ty, f"long form B=4 {T_X}x{LONG_T_Y}")
+        errs["mas_walk_idx_kernel"] = max(errs["mas_walk_idx_kernel"], err)
         for offset in (0, 4, 1):
             moved = shifted(bits, offset)
             plans.append(walk_plans(mk, moved))
@@ -553,7 +589,9 @@ def phase_two_pass_kernels(dev):
     log(18, f"long form B=4 {T_X}x{LONG_T_Y} (t_y={t_y.tolist()}): "
             f"mas_backtrack stage, chains=2, chains=4 bit-identical to "
             f"_backtrack in both layouts over NaN, from bits at offsets 0, "
-            f"4 and 1; ring walk plans: " + " | ".join(plans))
+            f"4 and 1; H11 indices equal to mas_walk_idx_plain over rows of "
+            f"0x7F7F7F7F, {unequal} unequal cells, fetches {idx_fetches}; "
+            f"ring walk plans: " + " | ".join(plans))
     return errs
 
 
@@ -1182,37 +1220,51 @@ def expand_device_times(dev):
 
 
 def walk_device_times(dev):
-    """H1's walk alone, H10 and H14 (2 and 4 chains) over the same bits
-    at B=32 and B=256, 128x1024, by the profiler's device time of the
+    """H1's walk alone, H10, H11 and H14 (2 and 4 chains) over the same
+    bits at B=32 and B=256, 128x1024, by the profiler's device time of the
     kernel alone beside CUDA events around each call: at B=32 the events
     read the host's launch work for the call (about as long as the
-    kernel) more than the card."""
+    kernel) more than the card. H11 also beside its chain: the longest
+    item's frames at H10's step by device time at B=32, where H10's time
+    is its walker's chain (at B=256 it is the path's bytes)."""
     from aligner_tpu_torch.ops import mas_kernel as mk
+    chain_ns = None
     for B in (B_MAS, B_SERVE):
         value, t_x, t_y = ragged(0, B, T_X, T_Y)
         v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
         bits = mk.mas_bits(v, tx, ty)
-        line = []
-        for name, options, kernel in (
-                ("H1 walk alone", {}, "mas_kernel"),
-                ("H10", {"form": "stage"}, "mas_walk_stage_kernel"),
-                ("H14 K=2", {"chains": 2}, "mas_walk_chains_kernel"),
-                ("H14 K=4", {"chains": 4}, "mas_walk_chains_kernel")):
-            def run(options=options):
-                return mk.mas_backtrack(bits, tx, ty, **options)
+        frames = int(ty.max())
+        line, step_ns = [], {}
+        for name, run, kernel in (
+                ("H1 walk alone", lambda: mk.mas_backtrack(bits, tx, ty),
+                 "mas_kernel"),
+                ("H10", lambda: mk.mas_backtrack(bits, tx, ty, form="stage"),
+                 "mas_walk_stage_kernel"),
+                ("H11", lambda: mk.mas_walk_idx(bits, tx, ty),
+                 "mas_walk_idx_kernel"),
+                ("H14 K=2", lambda: mk.mas_backtrack(bits, tx, ty, chains=2),
+                 "mas_walk_chains_kernel"),
+                ("H14 K=4", lambda: mk.mas_backtrack(bits, tx, ty, chains=4),
+                 "mas_walk_chains_kernel")):
             ms, _ = device_ms(run, 50, kernel)
+            step_ns[name] = ms * 1e6 / frames
             line.append(f"{name} {ms:.4f} ms of device time "
-                        f"({ms * 1e6 / int(ty.max()):.1f} ns a frame), "
+                        f"({step_ns[name]:.1f} ns a frame), "
                         f"{cuda_ms(run, 50):.4f} ms by events")
+        chain_ns = chain_ns or step_ns["H10"]
         log(7, f"walks by device time, B={B} {T_X}x{T_Y}: "
-               + "; ".join(line))
+               + "; ".join(line) + f"; H11's chain at H10's B={B_MAS} step "
+               f"{frames} frames x {chain_ns:.1f} ns = "
+               f"{frames * chain_ns * 1e-6:.4f} ms")
 
 
 # Kernels whose byte bound says nothing: one thread follows a chain of
-# dependent loads and moves a few KB.
+# dependent steps and the kernel moves a few KB.
 CHAIN_BOUND = ("mas_walk_idx_kernel",)
-WALK_NOTE = ("(no share stated: what bounds it in fact is a chain of up to "
-             "{frames} dependent L2 loads per item)")
+WALK_NOTE = ("(no share stated: what bounds it in fact is the ring walk's "
+             "chain of up to {frames} dependent steps from shared memory "
+             "per item; that chain at H10's step is logged with the walks' "
+             "device times)")
 
 
 def walk_plans(mk, bits):

@@ -1,5 +1,5 @@
-"""A/B of the MAS kernels H1, H10, H13 and H14 and the MoBo boundary
-kernel H8 between source trees, on one card.
+"""A/B of the MAS kernels H1, H10, H11, H13 and H14 and the MoBo
+boundary kernel H8 between source trees, on one card.
 
     python3 kernel_ab.py [--sass] TREE [TREE ...]
 
@@ -16,8 +16,9 @@ root builds that tree's kernels and times them with CUDA events (mean of
     (`mas_bits`) at B=32 and B=256, 128x1024 ragged;
   * H13 (`mas_bits(chains=2)` and `chains=4`) at B=32;
   * the walks over `mas_bits`' bytes at B=32 and B=256, 128x1024 ragged:
-    H1's walk alone (`mas_backtrack`), H10 (`form="stage"`) and H14
-    (`chains=2` and `chains=4`), by the profiler's device time of every
+    H1's walk alone (`mas_backtrack`), H10 (`form="stage"`), H11 (the
+    index walk, `mas_walk_idx`) and H14 (`chains=2` and `chains=4`), by
+    the profiler's device time of every
     kernel a call launches (a tree's zero fill included where its walk
     needs one), beside CUDA events around the call, which at B=32 read
     the host's launch work for the call more than the card;
@@ -104,6 +105,8 @@ def run_tree(label):
             walks[f"{name} B={B}"] = (
                 lambda bits=bits, txb=txb, tyb=tyb, options=options:
                 mk.mas_backtrack(bits, txb, tyb, **options))
+        walks[f"H11 B={B}"] = (lambda bits=bits, txb=txb, tyb=tyb:
+                               mk.mas_walk_idx(bits, txb, tyb))
     for rep in range(3):
         for name, fn in walks.items():
             ms, kernels = cs.device_ms(fn, 20)

@@ -285,11 +285,13 @@ def mas_planes(monkeypatch):
 
 @pytest.fixture
 def mas_outputs_prefilled(monkeypatch):
-    """Every output that H1 or H13 writes whole starts as garbage: paths
-    NaN, durations -1, bits 0xA5; so a cell it leaves unwritten shows."""
+    """Every output that H1, H11 or H13 writes whole starts as garbage:
+    paths NaN, durations -1, bits 0xA5, index rows 0x7F7F7F7F; so a cell
+    it leaves unwritten shows."""
     path_out = mas_kernel._path_out
     bits_out = mas_kernel._bits_out
     durations_out = mas_kernel._durations_out
+    idx_out = mas_kernel._idx_out
 
     def paths(*args):
         out, view = path_out(*args)
@@ -303,6 +305,8 @@ def mas_outputs_prefilled(monkeypatch):
     monkeypatch.setattr(mas_kernel, "_bits_out", bits)
     monkeypatch.setattr(mas_kernel, "_durations_out",
                         lambda *args: durations_out(*args).fill_(-1))
+    monkeypatch.setattr(mas_kernel, "_idx_out",
+                        lambda *args: idx_out(*args).fill_(0x7F7F7F7F))
 
 
 # MAS: each shape with the bit plane in shared memory, as planned, and in
@@ -477,6 +481,44 @@ def test_ring_walk_matches_plain(cuda, mas_outputs_prefilled, route, offset,
         torch.testing.assert_close(
             mas_kernel.mas_backtrack(moved, tx, ty, frame_major=True,
                                      **options), want.transpose(1, 2),
+            rtol=0, atol=0)
+
+
+# H11, the ring walk with one storer warp writing int32 rows, over rows of
+# 0x7F7F7F7F: the ring tests' shapes and fetches (bits at a 16-byte
+# boundary, 4 and 1 bytes past it), and T_y = 61, whose rows are not all
+# 16-byte aligned (one frame a store up to the first aligned frame).
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("seed,B,T_x,T_y", [(60, 4, 16, 40),
+                                            (61, 4, 32, 256),
+                                            (62, 4, 32, 512),
+                                            (63, 4, 20, 600),
+                                            (64, 8, 45, 300),
+                                            (65, 4, 128, 1024),
+                                            (66, 4, 8200, 100),
+                                            (67, 8, 16, 61)])
+def test_idx_walk_matches_plain(cuda, mas_outputs_prefilled, offset, seed,
+                                B, T_x, T_y):
+    """Equal to `mas_walk_idx_plain` on every frame, also on bits from
+    elsewhere (bytes of 3, ones at token 0), each fetch its plan takes."""
+    value, t_x, t_y = ragged(seed, B, T_x, T_y)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    bits = mas_kernel.mas_bits(v, tx, ty)
+    foreign = bits * 3
+    foreign[:, :, 0] = 1
+    for given in (bits, foreign):
+        moved = shifted(given, offset)
+        threads, _, _, fetch, _ = mas_kernel._walk_plan(
+            T_x, T_y, 1, moved.data_ptr(),
+            threads=mas_kernel.IDX_WALK_THREADS)
+        assert threads == 96
+        assert fetch == mas_kernel._walk_plan(T_x, T_y, 1,
+                                              moved.data_ptr())[3]
+        torch.testing.assert_close(
+            mas_kernel.mas_walk_idx(moved, tx, ty),
+            mas_kernel.mas_walk_idx_plain(given.cpu(), tx.cpu(),
+                                          ty.cpu()).to(cuda),
             rtol=0, atol=0)
 
 

@@ -1,10 +1,13 @@
-"""The ring walk of H10 (`mas_walk_stage_kernel`) and H14
-(`mas_walk_chains_kernel`), `csrc/mas_walk.cuh`, checked on the CPU: its
-launch plan (`ops/mas_kernel.py:_walk_plan`: frames a chunk, stages,
-fetch), the plans the header builds, and a numpy emulation of the chunked
-ring (bytes fetched ahead into S stages, the four-frames-a-round walk
-from two words a frame picked by one byte permute, tokens handed to the storers S stages deep) held
-to the plain walk under hypothesis-drawn ties, before any launch.
+"""The ring walk of H10 (`mas_walk_stage_kernel`), H14
+(`mas_walk_chains_kernel`) and H11 (`mas_walk_idx_kernel`),
+`csrc/mas_walk.cuh`, checked on the CPU: its launch plan
+(`ops/mas_kernel.py:_walk_plan`: frames a chunk, stages, fetch; H11's
+group of IDX_WALK_THREADS), the plans the header builds, and a numpy
+emulation of the chunked ring (bytes fetched ahead into S stages, the
+four-frames-a-round walk from two words a frame picked by one byte
+permute, tokens handed to the storers S stages deep, which write the
+path's tiles or H11's int32 index row) held to the plain walk under
+hypothesis-drawn ties, before any launch.
 
     python -m pytest -q tests/test_torch_walk_plan.py
 """
@@ -17,11 +20,12 @@ import torch
 from hypothesis import given, settings
 from test_torch_mas_plan import tie_batches
 
-from aligner_tpu_torch.ops.mas_kernel import (MAX_SMEM, WALK_FETCHES,
-                                              WALK_MAX_T_X, WALK_PLANS,
-                                              WALK_THREADS, _walk_plan,
-                                              _walk_smem, mas_backtrack,
-                                              mas_bits, mas_expand_plain,
+from aligner_tpu_torch.ops.mas_kernel import (IDX_WALK_THREADS, MAX_SMEM,
+                                              WALK_FETCHES, WALK_MAX_T_X,
+                                              WALK_PLANS, WALK_THREADS,
+                                              _walk_plan, _walk_smem,
+                                              mas_backtrack, mas_bits,
+                                              mas_expand_plain,
                                               mas_walk_idx_plain)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -78,6 +82,25 @@ def test_columns_past_int16_tokens_raise():
             _walk_plan(WALK_MAX_T_X + 1, 2, K, 0)
 
 
+@pytest.mark.parametrize("T_x,T_y", COLUMNS)
+@pytest.mark.parametrize("base", [0, 4, 1])
+def test_idx_walk_plan_is_the_staged_walks_with_three_warps(T_x, T_y, base):
+    """H11 runs H10's frames, stages and fetch for the same column and
+    base with a group of three warps: a walker, a producer and one storer,
+    whose 4 B a frame need no more."""
+    plan = _walk_plan(T_x, T_y, 1, base, threads=IDX_WALK_THREADS)
+    assert plan[0] == IDX_WALK_THREADS == 96
+    assert plan[1:] == _walk_plan(T_x, T_y, 1, base)[1:]
+
+
+def test_idx_walk_columns_past_int16_tokens_raise():
+    """H11 keeps the walk's tokens as int16, as H10 does: a column past
+    WALK_MAX_T_X raises before any launch."""
+    assert _walk_plan(WALK_MAX_T_X, 2, 1, 0, threads=IDX_WALK_THREADS)
+    with pytest.raises(ValueError, match="at most 32767 tokens"):
+        _walk_plan(WALK_MAX_T_X + 1, 2, 1, 0, threads=IDX_WALK_THREADS)
+
+
 def test_walk_plans_match_the_kernels_built():
     """WALK_PLANS is `kWalkPlans` of csrc/mas_walk.cuh, in order, and the
     fetch codes are its WalkFetch enum; both kernels run the ring walk and
@@ -95,7 +118,10 @@ def test_walk_plans_match_the_kernels_built():
     with open(os.path.join(CSRC, "mas_two_pass.cu")) as f:
         source = f.read()
     assert '#include "mas_walk.cuh"' in source
-    assert source.count("ring_walk(bits + ") == 2
+    assert source.count("ring_walk(bits + ") == 3
+    assert source.count("TileStore{") == 2 and source.count("IdxStore{") == 1
+    assert "kIdxWarps" not in source
+    assert source.count("ring_walk_launch(\n") == 3
     assert "walk_plan_built(frames, stages)" in source
 
 
@@ -127,25 +153,64 @@ def test_fetch_is_bulk_exactly_where_the_alignment_allows(T_x, T_y, base):
 
 # ---- the ring walk, emulated as csrc/mas_walk.cuh runs it ----
 
-def ring_walk(item, tx, ty, valid, F, S, fetch):
+class TileStore:
+    """H10's and H14's storers: each chunk's [T_x, nf] tile of the path,
+    every cell, into an array of NaN."""
+
+    def __init__(self, T_x, T_y):
+        self.out = np.full((T_x, T_y), np.nan)
+
+    def __call__(self, y0, nf, tok):
+        for r in range(nf):
+            self.out[:, y0 + r] = np.arange(self.out.shape[0]) == tok(r)
+
+
+GARBAGE = 0x7F7F7F7F
+
+
+class IdxStore:
+    """H11's storer (csrc/mas_walk.cuh: walk_store_idx), store by store,
+    into an int32 row of garbage at byte address `address`: token + 1 a
+    frame (0 for none), one frame a store up to the first 16-byte aligned
+    frame, four a store from there (each at a 16-byte aligned address),
+    one a store for the frames left over; each frame written once."""
+
+    def __init__(self, T_y, address):
+        assert address % 4 == 0
+        self.out = np.full(T_y, GARBAGE, np.int64)
+        self.address = address
+        self.quads = 0
+
+    def __call__(self, y0, nf, tok):
+        at = self.address + 4 * y0
+        head = min(nf, (16 - at % 16) % 16 // 4)
+        quads = (nf - head) // 4
+        stores = ([(r, 1) for r in range(head)]
+                  + [(head + 4 * c, 4) for c in range(quads)]
+                  + [(r, 1) for r in range(head + 4 * quads, nf)])
+        written = np.zeros(nf, int)
+        for r, width in stores:
+            assert width == 1 or (at + 4 * r) % 16 == 0
+            for j in range(width):
+                self.out[y0 + r + j] = tok(r + j) + 1
+                written[r + j] += 1
+        assert (written == 1).all()
+        self.quads += quads
+
+
+def ring_walk(item, tx, ty, valid, F, S, fetch, store):
     """One item's walk through the ring: the producer as far ahead as
     the empty stages let it (chunk k + S - 1 while chunk k is walked), the
     storers as far behind as the token stages let them (chunk k - S stored
     just before chunk k's tokens are written), stages that keep what an
-    earlier chunk left. Returns (token + 1 a frame, the path [T_x, T_y])."""
+    earlier chunk left; each chunk's frames go to store(y0, nf, tok)."""
     T_y, T_x = item.shape
     flat = item.reshape(-1)
     stage_bytes = -(-F * T_x // 16) * 16
     stages = np.full((S, stage_bytes), 0xEE, np.uint8)   # garbage
     loaded = [None] * S               # (chunk, bytes) in each stage
     ring = np.full((S, F), 12345)
-    path = np.full((T_x, T_y), np.nan)
     n = -(-ty // F) if valid else 0
-    xs = np.arange(T_x)
-
-    def store(y0, nf, tok):
-        for r in range(nf):
-            path[:, y0 + r] = xs == tok(r)
 
     def store_chunk(k):
         y0 = (n - 1 - k) * F
@@ -203,29 +268,42 @@ def ring_walk(item, tx, ty, valid, F, S, fetch):
     while stored < n - 1:
         stored += 1
         store_chunk(stored)
-    assert not np.isnan(path).any()           # every cell written
-    tokens = np.where(path.any(0), path.argmax(0) + 1, 0)
-    return tokens.astype(np.int32), path.astype(np.float32)
 
 
-def emulate(bits, t_x, t_y, F, S, fetch):
+def emulate(bits, t_x, t_y, F, S, fetch, idx_base=0):
+    """(the paths [B, T_x, T_y] that H10's storers write, the index rows
+    [B, T_y] that H11's write into an int32 output at byte address
+    idx_base, H11's four-frame stores) of the emulated ring walk."""
     B, T_y, T_x = bits.shape
-    out = [ring_walk(bits[b], int(t_x[b]), int(t_y[b]),
-                     1 <= t_x[b] <= t_y[b] and t_x[b] <= T_x
-                     and t_y[b] <= T_y, F, S, fetch) for b in range(B)]
-    return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]))
+    paths, rows, quads = [], [], 0
+    for b in range(B):
+        valid = (1 <= t_x[b] <= t_y[b] and t_x[b] <= T_x
+                 and t_y[b] <= T_y)
+        tile, row = TileStore(T_x, T_y), IdxStore(T_y, idx_base + 4 * b * T_y)
+        for store in (tile, row):
+            ring_walk(bits[b], int(t_x[b]), int(t_y[b]), valid, F, S,
+                      fetch, store)
+        assert not np.isnan(tile.out).any()   # every cell written
+        assert (row.out != GARBAGE).all()     # every frame written
+        paths.append(tile.out.astype(np.float32))
+        rows.append(row.out.astype(np.int32))
+        quads += row.quads
+    return np.stack(paths), np.stack(rows), quads
 
 
 def check_ring_walk(bits, t_x, t_y, F, S, fetch):
     """The emulated ring walk, from the given bits and from bits from
     elsewhere (bytes of 3, ones at token 0), gives `mas_walk_idx_plain`'s
-    tokens and `mas_expand_plain`'s path, which is `mas_backtrack`'s."""
+    tokens in H11's rows and in the path, and `mas_expand_plain`'s path,
+    which is `mas_backtrack`'s."""
     tx, ty = torch.from_numpy(t_x), torch.from_numpy(t_y)
     foreign = bits * 3
     foreign[:, :, 0] = 1
     for given_bits in (bits, foreign):
-        tokens, path = emulate(given_bits.numpy(), t_x, t_y, F, S, fetch)
+        path, rows, _ = emulate(given_bits.numpy(), t_x, t_y, F, S, fetch)
         want = mas_walk_idx_plain(given_bits, tx, ty)
+        np.testing.assert_array_equal(rows, want.numpy())
+        tokens = np.where(path.any(1), path.argmax(1) + 1, 0)
         np.testing.assert_array_equal(tokens, want.numpy())
         np.testing.assert_array_equal(
             path, mas_expand_plain(want, bits.shape[2]).numpy())
@@ -268,3 +346,29 @@ def test_ring_wraps(T_x, ty):
                 T_x * T_y % 16 or 4 * T_x % 16):
             continue
         check_ring_walk(bits, t_x, t_y, 4, 4, fetch)
+
+
+# H11's index rows from a row base at each 4-byte offset of a 16-byte
+# line (row b starts at idx_base + 4 b T_y), with chunks of 128, 16, 4, 2
+# and 1 frames; T_y odd and even. Items: full length, ragged, t_x > t_y,
+# t_x = 0.
+@pytest.mark.parametrize("idx_base", [0, 4, 8, 12])
+@pytest.mark.parametrize("T_x,T_y,F", [(45, 300, 128), (8, 61, 16),
+                                       (20, 301, 4), (6, 37, 2), (5, 13, 1)])
+def test_idx_rows_from_any_alignment(T_x, T_y, F, idx_base):
+    """The plain walk's tokens + 1, zeros from t_y on and on the invalid
+    items, every frame written once over garbage; four-frame stores only
+    at 16-byte aligned addresses, and some wherever a chunk holds four
+    frames."""
+    rng = np.random.default_rng(T_y * 16 + idx_base)
+    value = rng.integers(-2, 3, (4, T_x, T_y)).astype(np.float32)
+    t_x = np.array([T_x, T_x // 2 + 1, T_x, 0], np.int32)
+    t_y = np.array([T_y, T_y - 5, T_x - 1, T_y // 2], np.int32)
+    tx, ty = torch.from_numpy(t_x), torch.from_numpy(t_y)
+    bits = mas_bits(torch.from_numpy(value), tx, ty)
+    _, rows, quads = emulate(bits.numpy(), t_x, t_y, F, 4, "bytes",
+                             idx_base)
+    want = mas_walk_idx_plain(bits, tx, ty).numpy()
+    np.testing.assert_array_equal(rows, want)
+    assert not want[2:].any() and not want[1, t_y[1]:].any()
+    assert (quads > 0) == (F >= 4)

@@ -1,28 +1,38 @@
 """Command-line interface of the port (`aligner-tpu-torch`).
 
+    python -m aligner_tpu_torch train <corpus> --checkpoint-dir DIR
+                                      [--model ota|mobo|romo] [--steps N]
+                                      [--tokenizer char|phone] ...
+                                      [--device cuda|cpu]
+    python -m aligner_tpu_torch align <corpus> --checkpoint-dir DIR
+                                      [--output durations.jsonl]
+                                      [--textgrid-dir DIR] [--step N] ...
     python -m aligner_tpu_torch demo-ota [--steps N] [--batch-size B] ...
-                                         [--device cuda|cpu]
     python -m aligner_tpu_torch demo-pauses [--steps N] [--skip-blind] ...
     python -m aligner_tpu_torch demo-mobo [--steps N] [--max-duration D] ...
     python -m aligner_tpu_torch demo-romo [--steps N] [--window W] ...
     python -m aligner_tpu_torch bench-mas [--batch B] [--t-text N]
                                           [--t-mel N] [--route R|all]
 
-`demo-ota` trains the OTA aligner on the synthetic corpus (known
-ground-truth durations) and prints duration accuracy and boundary F1 as
-one JSON line. `demo-pauses` trains the pause-aware aligner and the
-pause-blind one on a corpus with un-transcribed silences and prints their
-boundary and pause metrics as one JSON line. `demo-mobo` trains the MoBo
-boundary-search aligner on one synthetic batch with the reconstruction
-objective and prints the quality of its hard boundaries; `demo-romo`
-trains the RoMo aligner (rough OTA anchors, then a windowed MoBo
-refinement) and prints the rough and the refined stage's duration
-quality. `bench-mas` gates and times the batched MAS routes and prints one
-JSON line per route (`bench_mas.py`). All have the flags and the flow of
-aligner_tpu's subcommands of
-the same names, and run on `--device` (default `cuda`, which raises where
-no GPU is present; `--device cpu` runs every kernel's plain version). The
-other subcommands of aligner_tpu's CLI are not ported yet (ROADMAP.md).
+`train` trains an aligner on an LJSpeech-layout wav corpus
+(`metadata.csv` + `wavs/`): log-mels from `ops/mel.py`, the char or phone
+tokenizer, bucketed batches, checkpoints and `config.json` in the JAX
+package's schema. `align` rebuilds the model from a checkpoint's
+`config.json` and writes one `durations.jsonl` record per utterance, and
+Praat TextGrids on request. `demo-ota` trains the OTA aligner on the
+synthetic corpus (known ground-truth durations) and prints duration
+accuracy and boundary F1 as one JSON line. `demo-pauses` trains the
+pause-aware aligner and the pause-blind one on a corpus with
+un-transcribed silences and prints their boundary and pause metrics as
+one JSON line. `demo-mobo` trains the MoBo boundary-search aligner on one
+synthetic batch with the reconstruction objective and prints the quality
+of its hard boundaries; `demo-romo` trains the RoMo aligner (rough OTA
+anchors, then a windowed MoBo refinement) and prints the rough and the
+refined stage's duration quality. `bench-mas` gates and times the batched
+MAS routes and prints one JSON line per route (`bench_mas.py`). All have
+the flags and the flow of aligner_tpu's subcommands of the same names,
+and run on `--device` (default `cuda`, which raises where no GPU is
+present; `--device cpu` runs every kernel's plain version).
 """
 from __future__ import annotations
 
@@ -173,7 +183,144 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error line and exit 1 where "
                         "there is no GPU) or cpu (the plain versions)")
+    _train_parser(sub)
+    _align_parser(sub)
     return ap
+
+
+def _device_flag(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the mel front end and the model "
+                        "(default cuda; there is no fallback to the CPU)")
+
+
+def _train_parser(sub):
+    p = sub.add_parser("train", help="train an aligner on a wav "
+                                     "corpus (metadata.csv + wavs/)")
+    p.add_argument("corpus", help="corpus root directory")
+    p.add_argument("--model", choices=("ota", "mobo", "romo"),
+                   default="ota",
+                   help="alignment model family: 'ota' (forward-sum + "
+                        "MAS binarisation; the default), 'mobo' "
+                        "(monotonic boundary search under the "
+                        "max-duration constraint), 'romo' (rough OTA "
+                        "anchors + windowed MoBo refinement). Recorded in "
+                        "config.json; `align` decodes whichever family "
+                        "the checkpoint holds")
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--limit", type=int, default=None,
+                   help="max utterances to load")
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--dim", type=int, default=192)
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--temperature", type=float, default=0.05)
+    p.add_argument("--max-duration", type=int, default=32,
+                   help="MoBo/RoMo boundary-search window D in frames; "
+                        "ignored for --model ota")
+    p.add_argument("--window", type=int, default=16,
+                   help="RoMo refinement half-window around the rough "
+                        "anchors; ignored for other models")
+    p.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="encoder/energy matmul precision (OTA only). "
+                        "bfloat16 is not ported yet (ROADMAP Queue 1 "
+                        "item 3) and exits with an error")
+    p.add_argument("--tokenizer", choices=("char", "phone"),
+                   default="char",
+                   help="'phone' treats transcripts as space-separated "
+                        "symbol sequences (ARPAbet/IPA phone corpora) "
+                        "with a corpus-derived vocabulary persisted in "
+                        "config.json; 'char' (default) aligns raw "
+                        "characters")
+    p.add_argument("--mel-hop", type=int, default=None,
+                   help="mel hop length in samples (default 256 = "
+                        "11.6 ms at 22.05 kHz). Persisted in config.json; "
+                        "`align` reuses it")
+    p.add_argument("--mel-win", type=int, default=None,
+                   help="mel analysis window (= n_fft) in samples "
+                        "(default 1024). Persisted in config.json")
+    p.add_argument("--no-mel-center", action="store_true",
+                   help="left-align analysis windows instead of "
+                        "centering them. Persisted in config.json")
+    p.add_argument("--recon", action="store_true",
+                   help="enable the per-frame reconstruction auxiliary "
+                        "(the flagship recipe pairs it with "
+                        "--temperature 0.15)")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--lr-schedule", choices=("constant", "cosine"),
+                   default="constant")
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="clip gradients by global norm")
+    p.add_argument("--eval-split", type=float, default=0.0,
+                   help="fraction of batches held out for validation "
+                        "(logged as val_* metrics)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in "
+                        "--checkpoint-dir (same model/optimizer flags "
+                        "required)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="init + batch-shuffle seed (recorded in "
+                        "config.json)")
+    p.add_argument("--bin-start", type=int, default=None,
+                   help="binarisation CE start step (default steps//6)")
+    p.add_argument("--bin-ramp", type=int, default=None,
+                   help="binarisation CE ramp length (default steps//3)")
+    p.add_argument("--model-pauses", action="store_true",
+                   help="train the pause-aware aligner: silences are "
+                        "absorbed by implicit pause states between "
+                        "tokens. Enables the reconstruction auxiliary "
+                        "and the pause-bias curriculum; `align` then "
+                        "also emits per-gap pause durations")
+    p.add_argument("--pause-prior", choices=("bridge", "inherit"),
+                   default="bridge",
+                   help="pause-state prior shape (see OTAConfig)")
+    p.add_argument("--pause-bias", type=float, default=0.0,
+                   help="final per-frame pause occupancy cost (log-odds)")
+    p.add_argument("--pause-bias-start", type=float, default=-3.0,
+                   help="curriculum start value for the pause bias (set "
+                        "equal to --pause-bias to disable the "
+                        "curriculum; see demo-pauses)")
+    p.add_argument("--pause-bias-anneal", type=int, default=None,
+                   help="curriculum length in steps (default steps//2)")
+    p.add_argument("--pause-enter-cost", type=float, default=0.0,
+                   help="log-cost per pause entered (a serving-time "
+                        "precision knob)")
+    _device_flag(p)
+
+
+def _align_parser(sub):
+    p = sub.add_parser("align", help="emit durations for a wav corpus "
+                                     "using a trained checkpoint")
+    p.add_argument("corpus", help="corpus root directory")
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--output", default="durations.jsonl")
+    p.add_argument("--textgrid-dir", default=None,
+                   help="also write one Praat TextGrid per utterance")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--step", type=int, default=None,
+                   help="decode from this checkpoint step instead of "
+                        "the latest")
+    # Model shape comes from the checkpoint's config.json (written at
+    # train time); explicit flags are only needed for pre-config
+    # checkpoints, and conflicting with config.json is an error.
+    p.add_argument("--dim", type=int, default=None)
+    p.add_argument("--hidden", type=int, default=None)
+    p.add_argument("--temperature", type=float, default=None)
+    # Decode-time pause knobs (pause-aware checkpoints only): static
+    # lattice costs, not parameters, so overriding them re-runs the skip
+    # DP under another precision/recall trade-off with the same weights.
+    p.add_argument("--pause-enter-cost", type=float, default=None,
+                   help="override the per-pause-entered log-cost for "
+                        "this decode (the checkpoint's trained value is "
+                        "the default)")
+    p.add_argument("--pause-bias", type=float, default=None,
+                   help="override the per-frame pause occupancy "
+                        "log-odds for this decode (negative shortens "
+                        "pauses; the checkpoint's value is the default)")
+    _device_flag(p)
 
 
 def _corpus_batches(args, max_tokens=24, max_dur=7, **synth):
@@ -439,6 +586,445 @@ def cmd_demo_romo(args):
     }), flush=True)
 
 
+BF16_NOT_PORTED = ("--compute-dtype bfloat16 is not ported yet (ROADMAP "
+                   "Queue 1 item 3, bfloat16 autocast); train with "
+                   "--compute-dtype float32")
+
+
+def _mel_config_from_args(args):
+    """MelConfig for a `train` run from the --mel-* lever flags.
+
+    Returns (mel_cfg, extra) where `extra` is the config.json payload:
+    only non-default levers are recorded, so default runs keep a
+    `mel`-free config.json."""
+    from .ops.mel import MelConfig
+
+    overrides = {}
+    if getattr(args, "mel_hop", None) is not None:
+        overrides["hop_length"] = args.mel_hop
+    if getattr(args, "mel_win", None) is not None:
+        overrides["n_fft"] = args.mel_win
+        overrides["win_length"] = args.mel_win
+    if getattr(args, "no_mel_center", False):
+        overrides["center"] = False
+    cfg = MelConfig(**overrides)
+    return cfg, ({"mel": overrides} if overrides else {})
+
+
+def _mel_config_from_record(rec):
+    """MelConfig for `align` from a checkpoint's config.json. Checkpoints
+    without a `mel` key trained with the defaults."""
+    from .ops.mel import MelConfig
+
+    if rec is None:
+        return MelConfig()
+    return MelConfig(**rec.get("mel", {}))
+
+
+def _make_tokenizer(args):
+    """Tokenizer for a file-corpus run. `--tokenizer phone` derives the
+    vocabulary from the corpus rows that will actually be loaded (wav
+    present, within --limit) and persists it in config.json so `align`
+    rebuilds the exact id mapping.
+
+    On `--resume`, an existing config.json's vocabulary wins: the
+    restored embedding rows only mean something under the original id
+    mapping. Out-of-vocabulary symbols in the current corpus are a loud
+    error.
+    """
+    import os
+
+    from .data import CharTokenizer, PhoneTokenizer, load_metadata
+
+    if getattr(args, "tokenizer", "char") != "phone":
+        return CharTokenizer()
+
+    def corpus_texts():
+        # Mirror load_corpus's row filter (wav exists, --limit) so the
+        # vocabulary covers exactly the trained rows.
+        limit = getattr(args, "limit", None)
+        n = 0
+        for utt_id, text in load_metadata(args.corpus):
+            if limit is not None and n >= limit:
+                return
+            if not os.path.exists(os.path.join(
+                    args.corpus, "wavs", f"{utt_id}.wav")):
+                continue
+            yield text
+            n += 1
+
+    if getattr(args, "resume", False) and \
+            getattr(args, "checkpoint_dir", None):
+        from .train.checkpoint import load_run_config
+        rec = load_run_config(args.checkpoint_dir)
+        if rec is not None and rec.get("tokenizer_vocab") is not None:
+            tok = PhoneTokenizer(phones=tuple(rec["tokenizer_vocab"]))
+            unknown = sorted(
+                {p for t in corpus_texts() for p in t.split()}
+                - set(tok.phones))
+            if unknown:
+                raise SystemExit(
+                    "--resume: corpus contains symbols outside the "
+                    "checkpoint's vocabulary "
+                    f"({', '.join(unknown[:10])}"
+                    f"{', ...' if len(unknown) > 10 else ''}); the "
+                    "embedding ids are fixed at first training — "
+                    "retrain from scratch for a new vocabulary")
+            return tok
+    tok = PhoneTokenizer.from_corpus(corpus_texts())
+    if not tok.phones:
+        raise SystemExit("--tokenizer phone: corpus metadata has no "
+                         "symbols to build a vocabulary from")
+    return tok
+
+
+def _file_model(args, device):
+    """The model family selected by `train --model` on `device`, with its
+    tokenizer. MoBo and RoMo always train with the learned reconstruction
+    decoder: their marginal NLLs alone only shape energies and leave
+    boundaries unpinned."""
+    from .models import (MoBoAligner, MoBoConfig, OTAAligner, OTAConfig,
+                         RoMoAligner, RoMoConfig)
+
+    family = getattr(args, "model", "ota")
+    model_pauses = getattr(args, "model_pauses", False)
+    compute_dtype = getattr(args, "compute_dtype", "float32")
+    if family != "ota":
+        if model_pauses:
+            raise SystemExit("--model-pauses is an OTA capability "
+                             "(skip-state DP); drop it or use "
+                             "--model ota")
+        if compute_dtype != "float32":
+            raise SystemExit("--compute-dtype is currently wired for "
+                             "--model ota only")
+    elif compute_dtype != "float32":
+        raise SystemExit(BF16_NOT_PORTED)
+    tok = _make_tokenizer(args)
+    if family == "mobo":
+        return tok, MoBoAligner(MoBoConfig(
+            vocab_size=tok.vocab_size, dim=args.dim, hidden=args.hidden,
+            max_duration=args.max_duration, use_recon=True), device=device)
+    if family == "romo":
+        return tok, RoMoAligner(RoMoConfig(
+            vocab_size=tok.vocab_size, dim=args.dim, hidden=args.hidden,
+            temperature=args.temperature,
+            max_duration=args.max_duration, window=args.window,
+            use_recon=True), device=device)
+    use_recon = getattr(args, "recon", False)
+    if model_pauses and not use_recon:
+        # The pause key only learns the silence spectrum through the
+        # reconstruction auxiliary; without it the optional states
+        # collapse.
+        print("note: --model-pauses enables --recon")
+        use_recon = True
+    model = OTAAligner(OTAConfig(
+        vocab_size=tok.vocab_size, dim=args.dim, hidden=args.hidden,
+        temperature=args.temperature, use_recon=use_recon,
+        model_pauses=model_pauses,
+        pause_prior=getattr(args, "pause_prior", "bridge"),
+        pause_bias=getattr(args, "pause_bias", 0.0),
+        pause_enter_cost=getattr(args, "pause_enter_cost", 0.0),
+        compute_dtype=compute_dtype), device=device)
+    return tok, model
+
+
+def _decode_pause_overrides(args, cfg):
+    """Overlay align's decode-time pause knobs on the checkpoint config.
+
+    `pause_enter_cost` and `pause_bias` are static costs in the skip-DP
+    lattice, not trained parameters, so overriding them at decode time is
+    well defined: the same weights at another pause precision/recall
+    operating point."""
+    import dataclasses
+    knobs = {k: getattr(args, k) for k in ("pause_enter_cost",
+                                           "pause_bias")
+             if getattr(args, k, None) is not None}
+    if not knobs:
+        return cfg
+    if not cfg.model_pauses:
+        names = "/".join("--" + k.replace("_", "-") for k in knobs)
+        raise SystemExit(
+            f"{names} requires a checkpoint trained with "
+            "--model-pauses (this one has no pause states to decode)")
+    return dataclasses.replace(cfg, **knobs)
+
+
+def _model_from_checkpoint(args, device):
+    """Rebuild the trained model (on `device`) and its tokenizer from the
+    checkpoint's config.json.
+
+    Explicit --dim/--hidden/--temperature flags must match config.json
+    when both are given (loud error on mismatch); for pre-config
+    checkpoints (no config.json) they are required."""
+    from .data import CharTokenizer, PhoneTokenizer
+    from .models import (MoBoAligner, MoBoConfig, OTAAligner, OTAConfig,
+                         RoMoAligner, RoMoConfig)
+    from .train.checkpoint import load_run_config
+
+    rec = load_run_config(args.checkpoint_dir)
+    overrides = {k: getattr(args, k) for k in
+                 ("dim", "hidden", "temperature")
+                 if getattr(args, k) is not None}
+    if rec is None:
+        missing = [k for k in ("dim", "hidden", "temperature")
+                   if getattr(args, k) is None]
+        if missing:
+            raise SystemExit(
+                f"{args.checkpoint_dir} has no config.json (pre-config "
+                f"checkpoint); pass --{' --'.join(missing)} matching the "
+                "training run")
+        tok = CharTokenizer()
+        return tok, OTAAligner(_decode_pause_overrides(args, OTAConfig(
+            vocab_size=tok.vocab_size, dim=args.dim, hidden=args.hidden,
+            temperature=args.temperature)), device=device)
+    cfg_dict = rec["model_config"]
+    conflicts = {k: (v, cfg_dict.get(k)) for k, v in overrides.items()
+                 if cfg_dict.get(k) != v}
+    if conflicts:
+        detail = ", ".join(f"--{k}={v} vs config.json {c}"
+                           for k, (v, c) in conflicts.items())
+        raise SystemExit(
+            f"flags conflict with the checkpoint's saved config "
+            f"({detail}); drop the flags — the checkpoint is "
+            "self-describing")
+    family = rec.get("model_class", "OTA").removesuffix("Aligner")
+    if family not in ("OTA", "MoBo", "RoMo"):
+        raise SystemExit(
+            f"checkpoint holds a {rec['model_class']} model; `align` "
+            "drives the OTA/MoBo/RoMo aligners")
+    if rec.get("tokenizer") == "PhoneTokenizer":
+        vocab = rec.get("tokenizer_vocab")
+        if vocab is None:
+            raise SystemExit(
+                "checkpoint was trained with a PhoneTokenizer but its "
+                "config.json records no tokenizer_vocab; retrain (the "
+                "vocab is corpus-derived and cannot be reconstructed)")
+        tok = PhoneTokenizer(phones=tuple(vocab))
+    else:
+        tok = CharTokenizer()
+    if family == "MoBo":
+        cfg = MoBoConfig(**cfg_dict)
+    elif family == "RoMo":
+        cfg = RoMoConfig(**cfg_dict)
+    else:
+        cfg = _decode_pause_overrides(args, OTAConfig(**cfg_dict))
+        if cfg.compute_dtype != "float32":
+            raise SystemExit(BF16_NOT_PORTED)
+    if family != "OTA" and any(
+            getattr(args, k, None) is not None
+            for k in ("pause_enter_cost", "pause_bias")):
+        raise SystemExit("--pause-enter-cost/--pause-bias require an "
+                         "OTA checkpoint trained with --model-pauses")
+    if cfg.vocab_size != tok.vocab_size:
+        raise SystemExit(
+            f"checkpoint vocab_size {cfg.vocab_size} does not match the "
+            f"{type(tok).__name__} ({tok.vocab_size}); was it trained "
+            "with a different tokenizer?")
+    model_class = {"OTA": OTAAligner, "MoBo": MoBoAligner,
+                   "RoMo": RoMoAligner}[family]
+    return tok, model_class(cfg, device=device)
+
+
+def _no_hard_decode(step_no):
+    """MoBo and RoMo train without the hard Viterbi decode (align only)."""
+    return {"compute_hard": False}
+
+
+def _mobo_objective(out, step_no):
+    # Reconstruction pins boundaries, the boundary NLL shapes energies.
+    loss = out["loss_recon"] + 0.1 * out["loss_mobo"]
+    return loss, {"loss_mobo": out["loss_mobo"],
+                  "loss_recon": out["loss_recon"]}
+
+
+def _romo_objective(out, step_no):
+    loss = out["loss_recon"] + 0.1 * out["loss"]
+    return loss, {"loss_rough": out["loss_rough"],
+                  "loss_refine": out["loss_refine"],
+                  "loss_recon": out["loss_recon"],
+                  "refine_feasible": torch.mean(
+                      out["refine_feasible"].to(torch.float32))}
+
+
+def _float32_on(device):
+    """--compute-dtype float32 means float32 on the card too: no TF32 in
+    cuBLAS or cuDNN (PyTorch lets cuDNN's convolutions use TF32 by
+    default)."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def cmd_train(args):
+    """Returns the run's host-clock times: corpus load and training (with
+    checkpoint writes) in seconds, the steady-state wall a step in ms
+    (None with fewer than two log points), and the steps taken."""
+    import os
+    import time
+
+    from .data import bucket_batches, load_corpus
+    from .train.loop import train_aligner
+
+    device = _device(args)
+    if not os.path.exists(os.path.join(args.corpus, "metadata.csv")):
+        raise SystemExit(f"no metadata.csv under {args.corpus}")
+    tok, model = _file_model(args, device)
+    _float32_on(device)
+    mel_cfg, mel_extra = _mel_config_from_args(args)
+    t0 = time.perf_counter()
+    items = list(load_corpus(args.corpus, tokenizer=tok,
+                             mel_config=mel_cfg, limit=args.limit,
+                             device=device))
+    load_s = time.perf_counter() - t0
+    if not items:
+        raise SystemExit(f"no usable utterances under {args.corpus}")
+    print(f"loaded {len(items)} utterances in {load_s:.3f} s", flush=True)
+    batches = list(bucket_batches(items, args.batch_size,
+                                  shuffle_seed=args.seed))
+    eval_batches = None
+    if args.eval_split > 0 and len(batches) > 1:
+        n_eval = max(1, int(round(args.eval_split * len(batches))))
+        n_eval = min(n_eval, len(batches) - 1)
+        eval_batches, batches = batches[:n_eval], batches[n_eval:]
+        print(f"holding out {n_eval} batches for validation")
+    apply_extra, objective = None, None
+    if args.model == "mobo":
+        apply_extra, objective = _no_hard_decode, _mobo_objective
+    elif args.model == "romo":
+        apply_extra, objective = _no_hard_decode, _romo_objective
+    elif args.model_pauses and args.pause_bias_start != args.pause_bias:
+        # Pause-bias curriculum: anneal the occupancy cost from a strongly
+        # discouraging start so tokens claim their frames first.
+        anneal = args.pause_bias_anneal or args.steps // 2
+        start, final = args.pause_bias_start, args.pause_bias
+
+        def apply_extra(step_no):
+            frac = min(max(step_no / max(anneal, 1), 0.0), 1.0)
+            return {"pause_bias": start + (final - start) * frac}
+
+    t0 = time.perf_counter()
+    state, history = train_aligner(
+        model, batches, steps=args.steps, device=device,
+        learning_rate=args.lr,
+        bin_start=args.bin_start or args.steps // 6,
+        bin_ramp=args.bin_ramp or args.steps // 3,
+        checkpoint_dir=args.checkpoint_dir,
+        config_extra={"tokenizer": type(tok).__name__,
+                      **({"tokenizer_vocab": list(tok.phones)}
+                         if hasattr(tok, "phones") else {}),
+                      **mel_extra},
+        warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule,
+        grad_clip_norm=args.grad_clip, eval_batches=eval_batches,
+        resume=args.resume, seed=args.seed,
+        apply_extra=apply_extra, objective=objective)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_s = time.perf_counter() - t0
+    print(f"checkpoints in {args.checkpoint_dir}", flush=True)
+    # Steady-state wall a step: between the first and the last log point
+    # (each reads the metrics back, so each waits for the device).
+    logged = [r for r in history if "lr" in r]
+    step_ms = ((logged[-1]["wall_s"] - logged[0]["wall_s"]) * 1e3
+               / (logged[-1]["step"] - logged[0]["step"])
+               if len(logged) > 1 else None)
+    return {"load_s": load_s, "train_s": train_s, "steps": state.step,
+            "step_ms": step_ms, "utterances": len(items)}
+
+
+def _textgrid_intervals(d, labels, pauses):
+    """Token durations and labels with each non-empty pause (pause j
+    precedes token j) interleaved as an unlabelled interval, the Praat
+    silence convention."""
+    if pauses is None:
+        return d, labels
+    durs, labs = [], []
+    for g in range(len(d)):
+        if pauses[g] > 0:
+            durs.append(pauses[g])
+            labs.append("")
+        durs.append(d[g])
+        labs.append(labels[g])
+    if pauses[len(d)] > 0:
+        durs.append(pauses[len(d)])
+        labs.append("")
+    return durs, labs
+
+
+def cmd_align(args):
+    import os
+
+    from .data import bucket_batches, load_corpus, write_textgrid
+    from .train import restore_params
+    from .train.checkpoint import load_run_config
+
+    device = _device(args)
+    if not os.path.isdir(args.checkpoint_dir):
+        raise SystemExit(f"checkpoint dir not found: {args.checkpoint_dir}")
+    if not os.path.exists(os.path.join(args.corpus, "metadata.csv")):
+        raise SystemExit(f"no metadata.csv under {args.corpus}")
+    tok, model = _model_from_checkpoint(args, device)
+    _float32_on(device)
+    mel_cfg = _mel_config_from_record(load_run_config(args.checkpoint_dir))
+    items = list(load_corpus(args.corpus, tokenizer=tok,
+                             mel_config=mel_cfg, limit=args.limit,
+                             device=device))
+    if not items:
+        raise SystemExit(f"no usable utterances under {args.corpus}")
+    batches = list(bucket_batches(items, args.batch_size,
+                                  with_items=True))
+    # Parameters only: align does not depend on the training run's
+    # optimizer or schedule.
+    restore_params(args.checkpoint_dir, model, step=args.step)
+    model.eval()
+    family = type(model.config).__name__.removesuffix("Config")
+    with_pauses = family == "OTA" and model.config.model_pauses
+
+    @torch.no_grad()
+    def extract(b):
+        out = model(*(torch.as_tensor(b[k]).to(device) for k in
+                      ("tokens", "mel", "text_lengths", "mel_lengths")))
+        if family == "OTA":
+            return (out["durations"],
+                    out["pause_durations"] if with_pauses else None)
+        if family == "RoMo":
+            # Refined Viterbi boundaries where the windowed search is
+            # feasible; the rough stage's expected durations otherwise
+            # (hard_durations mean nothing there).
+            feas = out["refine_feasible"][:, None]
+            return torch.where(feas, out["hard_durations"].to(torch.float32),
+                               torch.round(out["rough_durations"])), None
+        return out["hard_durations"], None
+
+    if args.textgrid_dir:
+        os.makedirs(args.textgrid_dir, exist_ok=True)
+    n = 0
+    with open(args.output, "w") as f:
+        for b, group in batches:
+            durs, pauses = extract(b)
+            durs = durs.cpu().numpy()
+            pauses = None if pauses is None else pauses.cpu().numpy()
+            for i, item in enumerate(group):
+                t_x = int(b["text_lengths"][i])
+                d = durs[i, :t_x].astype(int).tolist()
+                rec = {"utt_id": item["utt_id"], "durations": d,
+                       "n_frames": int(b["mel_lengths"][i])}
+                pp = None
+                if pauses is not None:
+                    pp = pauses[i, :t_x + 1].astype(int).tolist()
+                    rec["pauses"] = pp  # per-gap silence frames [t_x+1]
+                f.write(json.dumps(rec) + "\n")
+                if args.textgrid_dir:
+                    tg_durs, tg_labels = _textgrid_intervals(
+                        d, tok.labels(item["text"])[:t_x], pp)
+                    write_textgrid(
+                        os.path.join(args.textgrid_dir,
+                                     f"{item['utt_id']}.TextGrid"),
+                        tg_durs, tg_labels,
+                        mel_cfg.hop_length, mel_cfg.sample_rate)
+                n += 1
+    print(f"wrote {n} alignments to {args.output}", flush=True)
+
+
 def cmd_bench_mas(args):
     from . import bench_mas
     code = bench_mas.run(batch=args.batch, t_text=args.t_text,
@@ -452,7 +1038,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     {"demo-ota": cmd_demo_ota, "demo-pauses": cmd_demo_pauses,
      "demo-mobo": cmd_demo_mobo, "demo-romo": cmd_demo_romo,
-     "bench-mas": cmd_bench_mas}[args.cmd](args)
+     "bench-mas": cmd_bench_mas, "train": cmd_train,
+     "align": cmd_align}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -79,7 +79,7 @@ class OTAAligner(nn.Module):
         if config.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={config.compute_dtype!r} is not ported yet "
-                "(ROADMAP Queue 1 item 6, bfloat16 autocast)")
+                "(ROADMAP Queue 1 item 3, bfloat16 autocast)")
         if config.mas_implementation != "auto":
             raise ValueError(
                 "the port routes MAS by device; mas_implementation must be "

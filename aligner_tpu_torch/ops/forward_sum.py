@@ -13,6 +13,9 @@ d loss / d logp = -gamma. On a CUDA tensor the alpha sweep is kernel H2
 and the beta sweep kernel H3; on a CPU tensor both run as their plain
 PyTorch versions (`ops/forward_sum_kernel.py`).
 
+`alignment_posteriors` returns the posteriors with the log-marginal from
+the same two sweeps.
+
 Layout: log_probs are frame-major [B, T_y, T_x] (log-softmax over the text
 axis); t_x, t_y are per-item lengths.
 """
@@ -127,3 +130,49 @@ def forward_sum_loss_with_posteriors(log_probs: torch.Tensor,
     itself is not differentiable; it is 0 for invalid items.
     """
     return _ForwardSumWithPosteriors.apply(log_probs, t_x, t_y)
+
+
+class _AlignmentPosteriors(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, log_probs, t_x, t_y):
+        *_, total, t_x, t_y, gamma = _forward_sweeps(
+            log_probs, t_x, t_y, posteriors=True)
+        valid = _valid_items(t_x, t_y)
+        gamma = torch.where(valid[:, None, None], gamma.transpose(0, 1), 0.0)
+        # A cotangent that never reaches gamma stays None, so that only a
+        # gradient through gamma itself is refused below.
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(gamma)
+        ctx.dtype = log_probs.dtype
+        return gamma, total
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_gamma, grad_total):
+        if grad_gamma is not None:
+            raise RuntimeError(
+                "alignment_posteriors: a gradient through gamma needs a "
+                "second-order forward-backward sweep, which has no kernel; "
+                "only the log-marginal `total` is differentiable (its "
+                "gradient is gamma)")
+        if grad_total is None:
+            return None, None, None
+        gamma, = ctx.saved_tensors
+        return (gamma * grad_total[:, None, None]).to(ctx.dtype), None, None
+
+
+def alignment_posteriors(log_probs: torch.Tensor, t_x: torch.Tensor,
+                         t_y: torch.Tensor):
+    """Soft alignment posteriors and the per-item log-marginal.
+
+    Returns (gamma [B, T_y, T_x] float32, whose rows sum to 1 over the
+    text for each real frame and which is 0 outside each item's t_x x t_y
+    range, total [B]). Items outside 1 <= t_x <= t_y get gamma 0 and
+    total 0. On a CUDA tensor the sweeps are kernels H2 and H3.
+
+    `total` is differentiable, with gamma as its gradient. A gradient
+    through gamma raises: it would need a second-order sweep (the JAX
+    function gets one from autodiff over its lax scans).
+    """
+    return _AlignmentPosteriors.apply(log_probs, t_x, t_y)

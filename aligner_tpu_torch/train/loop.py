@@ -112,7 +112,7 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
             rec = {k: float(v) for k, v in metrics.items()}
             # The update recorded at step i was applied with
             # schedule(i - 1).
-            rec.update(step=i, wall_s=round(time.time() - t0, 1),
+            rec.update(step=i, wall_s=time.time() - t0,
                        lr=(float(schedule(i - 1)) if schedule is not None
                            else learning_rate))
             history.append(rec)
@@ -121,7 +121,7 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
                 for k, v in rec.items()
                 if k not in ("loss", "step", "wall_s", "lr"))
             log_fn(f"step {i:6d}  loss {rec['loss']:8.4f}  "
-                   f"{detail}  [{rec['wall_s']}s]")
+                   f"{detail}  [{rec['wall_s']:.1f}s]")
         if eval_fn and (i % eval_every == 0 or i == steps):
             vals = []
             for eb in eval_batches:

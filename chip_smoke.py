@@ -11,9 +11,11 @@ training (`train_aligner` at the same width, checkpoints, `demo-ota`), the
 pause-aware path (`SkipBatchAligner`, `OTAAligner(model_pauses=True)`,
 `train_aligner` with a `pause_bias` curriculum, `demo-pauses`) and the
 boundary-search path (`MoBoAligner`, `RoMoAligner`, `train_aligner` with
-their reconstruction objectives, `demo-mobo`, `demo-romo`) and the two-pass
+their reconstruction objectives, `demo-mobo`, `demo-romo`), the two-pass
 MAS route at the serving batch (`mas_path(fuse=False)` in every form,
-`bench-mas`). Phases, in number order (18 runs after 4):
+`bench-mas`) and the wav pipeline (`train` then `align` through the CLI on
+corpora from scripts/make_wav_corpus.py). Phases, in number order (18 runs
+after 4):
 
   1. the card (nvidia-smi name and power limit)
   2. kernel build
@@ -105,8 +107,21 @@ MAS route at the serving batch (`mas_path(fuse=False)` in every form,
      route, each path equal to the fused kernel's; then
      `python -m aligner_tpu_torch bench-mas --route all --device cuda` at
      B=32 and B=256 as subprocesses, one gated JSON line per route
+ 20. wav pipeline with every plain version patched to raise: two seeded
+     64-utterance corpora from scripts/make_wav_corpus.py (characters; phone
+     transcripts with pauses), the card's log-mel of four utterances
+     against the CPU's at atol 1e-4, then `train` and `align` (with
+     TextGrids) through the CLI at its default width for OTA (`--recon
+     --temperature 0.15`), OTA `--model-pauses` and RoMo (both `--tokenizer
+     phone`): launch counts of each run (H1-H3; H4-H6; H2, H3, H7-H9), one
+     record and one TextGrid per utterance, frames conserved (RoMo's rough
+     fallback within a frame a token), the config.json keys, the corpus
+     load time and the wall a step; `python -m aligner_tpu_torch align
+     --device cuda` as a subprocess writing the same records; each
+     output's scores (`score_wav`), printed and not gated
 
-The second-to-last line is a JSON object listing the kernels; the last is
+The second-to-last line is a JSON object listing the kernels (launches by
+path: serving, training, pauses, mobo, two_pass, wav); the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero without a result; so it does without a CUDA device, or
 without the package beside it. Nothing runs on the CPU in its place; the
@@ -148,6 +163,8 @@ B_LONG, T_Y_LONG = 64, 2048              # BASELINE.json config 5
 # of |alpha|. The kernels are held to GRAD_RTOL/GRAD_ATOL against the
 # plain versions on the card, on the same lattice.
 GRAD_REL_LIMIT = 1e-2
+MEL_ATOL = 1e-4                          # card (cuFFT) vs CPU log-mel
+PROFILE_TRIES = 3                        # profiler sessions before failing
 DEMO_STEPS = 30
 PAUSE_UTTERANCES = 160
 ENTER_COSTS = (0.0, -1.2, 0.6)
@@ -1179,18 +1196,25 @@ def device_ms(fn, reps, kernel=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-              and (kernel is None or kernel in e.key)]
-    if not events:
-        raise AssertionError(f"the profiler saw no kernel of {fn}")
-    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
-            [e.key[:60] for e in events])
+    # Now and then CUPTI hands a session back with no kernel records at
+    # all; such a session is profiled again, up to PROFILE_TRIES times.
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
+                  and (kernel is None or kernel in e.key)]
+        if events:
+            return (sum(e.self_device_time_total for e in events) / 1e3
+                    / reps, [e.key[:60] for e in events])
+        log(7, f"the profiler saw no kernel ({kernel or 'any'}) of one "
+               "session; profiling again")
+    raise AssertionError(f"the profiler saw no kernel of {fn} in "
+                         f"{PROFILE_TRIES} sessions")
 
 
 def expand_device_times(dev):
@@ -2668,6 +2692,180 @@ def phase_two_pass_path(dev):
     return launches
 
 
+
+WAV_UTTERANCES, WAV_STEPS = 64, 300       # phase 20's corpora and runs
+WAV_MODEL_FLAGS = ()                      # the CLI's default width
+WAV_RUNS = (
+    ("ota", "char", ["--recon", "--temperature", "0.15"], TOKEN_KERNELS),
+    ("pauses", "phone", ["--model-pauses", "--tokenizer", "phone"],
+     SKIP_KERNELS),
+    ("romo", "phone", ["--model", "romo", "--tokenizer", "phone"],
+     ("forward_sum_alpha_kernel", "forward_sum_grad_kernel") + MOBO_KERNELS))
+CONFIG_KEYS = {"model_class", "model_config", "tokenizer", "train_seed",
+               "shuffle"}
+
+
+def make_wav_corpora(root):
+    """The two seeded corpora of scripts/make_wav_corpus.py, built side by
+    side: characters without pauses, and phone transcripts with a pause
+    after a token with probability 0.4."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpora = {"char": os.path.join(root, "char"),
+               "phone": os.path.join(root, "phone")}
+    extra = {"char": [], "phone": ["--pause-prob", "0.4", "--transcripts",
+                                   "phone"]}
+    procs = {k: subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts", "make_wav_corpus.py"),
+         path, "--utterances", str(WAV_UTTERANCES), "--seed", "0",
+         *extra[k]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k, path in corpora.items()}
+    for k, proc in procs.items():
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"make_wav_corpus.py ({k}) exited "
+                                 f"{proc.returncode}:\n{out}")
+    return corpora
+
+
+def read_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_alignments(name, corpus, ckpt, out, textgrids, tokenizer):
+    """One record and one TextGrid per utterance, frames conserved
+    (tokens and pauses), and the config.json keys."""
+    from aligner_tpu_torch.data import PhoneTokenizer, load_metadata
+    from aligner_tpu_torch.models import MoBoConfig, OTAConfig, RoMoConfig
+    texts = dict(load_metadata(corpus))
+    recs = read_records(out)
+    if sorted(r["utt_id"] for r in recs) != sorted(texts):
+        raise AssertionError(f"{name}: {len(recs)} records for "
+                             f"{len(texts)} utterances")
+    grids = sorted(os.listdir(textgrids))
+    if grids != sorted(f"{u}.TextGrid" for u in texts):
+        raise AssertionError(f"{name}: {len(grids)} TextGrids")
+    exact = 0
+    for r in recs:
+        n_tokens = len(texts[r["utt_id"]].split() if tokenizer == "phone"
+                       else texts[r["utt_id"]])
+        frames = sum(r["durations"]) + sum(r.get("pauses", []))
+        if len(r["durations"]) != n_tokens or \
+                ("pauses" in r) != (name == "pauses"):
+            raise AssertionError(f"{name}: record {r}")
+        exact += frames == r["n_frames"]
+        # RoMo's infeasible items take their rounded rough durations,
+        # which may miss the frame count by less than a frame a token.
+        if frames != r["n_frames"] and (
+                name != "romo" or abs(frames - r["n_frames"]) > n_tokens):
+            raise AssertionError(f"{name}: {frames} frames aligned of "
+                                 f"{r['n_frames']} ({r['utt_id']})")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = json.load(f)
+    keys = CONFIG_KEYS | ({"tokenizer_vocab"} if tokenizer == "phone"
+                          else set())
+    fields = {"ota": OTAConfig, "pauses": OTAConfig,
+              "romo": RoMoConfig, "mobo": MoBoConfig}[name]
+    if set(cfg) != keys or set(cfg["model_config"]) != set(
+            fields.__dataclass_fields__) or cfg["tokenizer"] != (
+            PhoneTokenizer.__name__ if tokenizer == "phone"
+            else "CharTokenizer"):
+        raise AssertionError(f"{name}: config.json {cfg}")
+    return recs, exact
+
+
+def card_vs_cpu_log_mel(corpus, dev, n=4):
+    """Max abs difference of the card's log-mel (cuFFT) from the CPU's
+    (pocketfft) on the corpus's first n utterances."""
+    from aligner_tpu_torch.data import load_metadata, read_wav
+    from aligner_tpu_torch.ops.mel import MelConfig, log_mel_spectrogram
+    err = 0.0
+    for utt_id, _ in list(load_metadata(corpus))[:n]:
+        _, wav = read_wav(os.path.join(corpus, "wavs", f"{utt_id}.wav"))
+        wav = torch.from_numpy(wav)[None]
+        want = log_mel_spectrogram(wav, MelConfig())
+        got = log_mel_spectrogram(wav.to(dev), MelConfig()).cpu()
+        torch.testing.assert_close(got, want, rtol=0, atol=MEL_ATOL)
+        err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def phase_wav(dev):
+    """The wav pipeline: `train` then `align` through the CLI on two
+    seeded corpora with every plain version refused, for OTA, the pause
+    model and RoMo; return the kernel launches made there."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch import cli
+    from aligner_tpu_torch.score_wav import score
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        corpora = make_wav_corpora(root)
+        log(20, f"two corpora of {WAV_UTTERANCES} utterances "
+                f"(scripts/make_wav_corpus.py --seed 0; the second with "
+                f"--pause-prob 0.4 --transcripts phone) in "
+                f"{time.perf_counter() - t0:.1f} s")
+        err = card_vs_cpu_log_mel(corpora["char"], dev)
+        log(20, f"log-mel on the card (cuFFT) against the CPU (pocketfft) "
+                f"on 4 utterances: max abs err {err:.3g} (atol {MEL_ATOL})")
+        outs = {}
+        for name, tokenizer, flags, kernels in WAV_RUNS:
+            corpus = corpora[tokenizer]
+            ckpt = os.path.join(root, f"ck_{name}")
+            out = os.path.join(root, f"{name}.jsonl")
+            textgrids = os.path.join(root, f"tg_{name}")
+            torch.cuda.synchronize()
+            at.reset_kernel_launches()
+            with plain_versions_refused():
+                times = cli.cmd_train(cli.build_parser().parse_args(
+                    ["train", corpus, "--checkpoint-dir", ckpt, "--steps",
+                     str(WAV_STEPS), *WAV_MODEL_FLAGS, *flags,
+                     "--device", str(dev)]))
+                t0 = time.perf_counter()
+                cli.main(["align", corpus, "--checkpoint-dir", ckpt,
+                          "--output", out, "--textgrid-dir", textgrids,
+                          "--device", str(dev)])
+                torch.cuda.synchronize()
+                align_s = time.perf_counter() - t0
+            run = at.kernel_launches()
+            require_launches(f"wav {name}", run, 1, kernels)
+            for k, v in run.items():
+                launches[k] = launches.get(k, 0) + v
+            recs, exact = check_alignments(name, corpus, ckpt, out,
+                                           textgrids, tokenizer)
+            outs[name] = (corpus, ckpt, out, recs)
+            log(20, f"{name} ({' '.join(flags)}): corpus load "
+                    f"{times['load_s']:.3f} s for {times['utterances']} "
+                    f"utterances, {times['steps']} steps in "
+                    f"{times['train_s']:.2f} s, {times['step_ms']:.2f} ms a "
+                    f"step between log points, align {align_s:.2f} s; "
+                    f"{len(recs)} records and TextGrids, frames conserved "
+                    f"on {exact}; no plain version reached; kernel "
+                    f"launches {run}")
+        corpus, ckpt, out, recs = outs["ota"]
+        sub_out = os.path.join(root, "subprocess.jsonl")
+        cmd = [sys.executable, "-m", "aligner_tpu_torch", "align", corpus,
+               "--checkpoint-dir", ckpt, "--output", sub_out, "--device",
+               "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0 or read_records(sub_out) != recs:
+            raise AssertionError(f"{' '.join(cmd[1:4])} exited "
+                                 f"{proc.returncode} or wrote other records:"
+                                 f"\n{proc.stdout}{proc.stderr}")
+        log(20, f"python -m aligner_tpu_torch align --device cuda as a "
+                f"subprocess in {time.perf_counter() - t0:.1f} s: the same "
+                f"{len(recs)} records as in process")
+        for name, (corpus, _, out, _) in outs.items():
+            log(20, f"score_wav {name}: {json.dumps(score(corpus, out))}")
+    log(20, f"phase in {time.perf_counter() - t_phase:.1f} s; kernel "
+            f"launches {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU instead",
@@ -2697,6 +2895,7 @@ def main():
     mobo = phase_mobo_path(dev)
     phase_demo_mobo(dev)
     two_pass = phase_two_pass_path(dev)
+    wav = phase_wav(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -2724,7 +2923,8 @@ def main():
                    "training": training.get(name, 0),
                    "pauses": pauses.get(name, 0),
                    "mobo": mobo.get(name, 0),
-                   "two_pass": two_pass.get(name, 0)}
+                   "two_pass": two_pass.get(name, 0),
+                   "wav": wav.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

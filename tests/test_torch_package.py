@@ -117,7 +117,9 @@ def test_import_pulls_in_no_jax():
             "             'ops.skip_dp', 'ops.skip_dp_kernel',\n"
             "             'ops.skip_dp_reference', 'ops.mobo',\n"
             "             'ops.mobo_kernel', 'models.mobo', 'models.romo',\n"
-            "             'models.convert', 'bench_mas'):\n"
+            "             'models.convert', 'bench_mas', 'ops.mel',\n"
+            "             'ops.durations', 'ops.regularizers', 'data.files',\n"
+            "             'data.text', 'data.textgrid', 'score_wav'):\n"
             "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -128,7 +130,8 @@ def test_import_pulls_in_no_jax():
     "chip_smoke.py", "aligner_tpu_torch/bench_mas.py",
     "aligner_tpu_torch/cli.py", "aligner_tpu_torch/_build.py",
     "aligner_tpu_torch/ops/mas_kernel.py",
-    "aligner_tpu_torch/ops/__init__.py"])
+    "aligner_tpu_torch/ops/__init__.py", "aligner_tpu_torch/ops/mel.py",
+    "aligner_tpu_torch/data/files.py", "aligner_tpu_torch/score_wav.py"])
 def test_source_names_no_jax_import(path):
     """No import statement of the file reaches jax or the JAX package."""
     with open(os.path.join(REPO, path)) as f:
@@ -230,6 +233,35 @@ def test_cpu_route_launches_no_kernel():
     for options in TWO_PASS_ROUTES.values():
         mas_kernel.mas_path(v, tx, ty, fuse=False, **options)
     assert at.kernel_launches() == {}
+
+
+def test_wav_front_end_and_posteriors_on_the_card(cuda):
+    """The log-mel on the card (cuFFT) against the CPU's (pocketfft) at
+    atol 1e-4, a wav shorter than the centred pad included; and
+    alignment_posteriors through H2 and H3 against the plain versions."""
+    from aligner_tpu_torch.ops import alignment_posteriors
+    from aligner_tpu_torch.ops.mel import MelConfig, log_mel_spectrogram
+    rng = np.random.default_rng(0)
+    for cfg in (MelConfig(), MelConfig(hop_length=128, n_fft=512,
+                                       win_length=512, center=False)):
+        for n in (300, 5000, 22050):
+            wav = torch.from_numpy(
+                (rng.standard_normal((2, n)) * 0.3).astype(np.float32))
+            want = log_mel_spectrogram(wav, cfg)
+            got = log_mel_spectrogram(wav.to(cuda), cfg)
+            assert got.device.type == "cuda" and got.shape == want.shape
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    logits = torch.from_numpy(rng.standard_normal((4, 60, 12))
+                              .astype(np.float32))
+    lp = torch.log_softmax(logits, -1)
+    t_x, t_y = torch.tensor([12, 5, 1, 9]), torch.tensor([60, 33, 7, 9])
+    want = alignment_posteriors(lp, t_x, t_y)
+    at.reset_kernel_launches()
+    got = alignment_posteriors(lp.to(cuda), t_x.to(cuda), t_y.to(cuda))
+    assert at.kernel_launches() == {"forward_sum_alpha_kernel": 1,
+                                    "forward_sum_grad_kernel": 1}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("call", ["mas_path", "mas_durations", "mas_bits",

@@ -225,8 +225,10 @@ def _train_parser(sub):
     p.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
                    default="float32",
                    help="encoder/energy matmul precision (OTA only). "
-                        "bfloat16 is not ported yet (ROADMAP Queue 1 "
-                        "item 3) and exits with an error")
+                        "bfloat16 runs the encoders, the pairwise energy "
+                        "product's inputs and the decoder in bfloat16; "
+                        "the parameters, losses and DP lattices stay "
+                        "float32. Persisted in config.json")
     p.add_argument("--tokenizer", choices=("char", "phone"),
                    default="char",
                    help="'phone' treats transcripts as space-separated "
@@ -586,11 +588,6 @@ def cmd_demo_romo(args):
     }), flush=True)
 
 
-BF16_NOT_PORTED = ("--compute-dtype bfloat16 is not ported yet (ROADMAP "
-                   "Queue 1 item 3, bfloat16 autocast); train with "
-                   "--compute-dtype float32")
-
-
 def _mel_config_from_args(args):
     """MelConfig for a `train` run from the --mel-* lever flags.
 
@@ -697,8 +694,6 @@ def _file_model(args, device):
         if compute_dtype != "float32":
             raise SystemExit("--compute-dtype is currently wired for "
                              "--model ota only")
-    elif compute_dtype != "float32":
-        raise SystemExit(BF16_NOT_PORTED)
     tok = _make_tokenizer(args)
     if family == "mobo":
         return tok, MoBoAligner(MoBoConfig(
@@ -808,8 +803,6 @@ def _model_from_checkpoint(args, device):
         cfg = RoMoConfig(**cfg_dict)
     else:
         cfg = _decode_pause_overrides(args, OTAConfig(**cfg_dict))
-        if cfg.compute_dtype != "float32":
-            raise SystemExit(BF16_NOT_PORTED)
     if family != "OTA" and any(
             getattr(args, k, None) is not None
             for k in ("pause_enter_cost", "pause_bias")):

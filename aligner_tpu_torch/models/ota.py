@@ -22,8 +22,13 @@ outputs gain `pause_durations`.
 On a CUDA device the dynamic programmes run as this package's kernels;
 on the CPU they run as their plain PyTorch versions. Gradients flow
 through the forward-sum loss, the bin loss and the reconstruction
-auxiliary, as in the JAX model. bfloat16 compute is not ported yet and
-raises.
+auxiliary, as in the JAX model.
+
+`compute_dtype="bfloat16"` runs the encoders, the pairwise energy product's
+inputs and the reconstruction decoder in bfloat16; the parameters stay
+float32 (flax's convention), and the energies, the log-softmax, the prior,
+every lattice and the losses stay float32, so the kernels never see
+bfloat16.
 """
 from __future__ import annotations
 
@@ -40,6 +45,10 @@ from ..ops.skip_dp import (expand_prior_to_states, forward_sum_skip_loss,
                            mas_skip_path_frame_major, split_state_durations)
 from ..utils.masks import sequence_mask
 from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
+
+
+# compute_dtype -> the encoders' dtype (None: float32 throughout).
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,19 +85,26 @@ class OTAAligner(nn.Module):
     def __init__(self, config: OTAConfig = OTAConfig(), *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={config.compute_dtype!r} is not ported yet "
-                "(ROADMAP Queue 1 item 3, bfloat16 autocast)")
+        if config.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                f"got {config.compute_dtype!r}")
+        # The hard path inside the step is the device's: kernel H1 (or H4)
+        # on the card, its plain version on the CPU. `maximum_path`'s host
+        # oracle ("cpp") copies the lattice to the host and back, which a
+        # train step on the card must never do, so no other route is taken.
         if config.mas_implementation != "auto":
             raise ValueError(
                 "the port routes MAS by device; mas_implementation must be "
                 f"'auto', got {config.mas_implementation!r}")
         self.config = config
+        dtype = COMPUTE_DTYPES[config.compute_dtype]
         self.text_encoder = TextEncoder(config.vocab_size, config.dim,
-                                        config.hidden, device=device)
+                                        config.hidden, dtype=dtype,
+                                        device=device)
         self.mel_encoder = MelEncoder(config.n_mels, config.dim,
-                                      config.hidden, device=device)
+                                      config.hidden, dtype=dtype,
+                                      device=device)
         if config.use_recon:
             self.mel_decoder = nn.Linear(config.dim, config.n_mels,
                                          device=device)
@@ -127,17 +143,26 @@ class OTAAligner(nn.Module):
         keys = self.text_encoder(tokens, text_mask)
         if cfg.model_pauses:
             # label axis = T_x tokens + 1 pause class
-            keys = torch.cat([keys, self.pause_key.expand(B, 1, cfg.dim)],
-                             dim=1)
+            keys = torch.cat([keys, self.pause_key.to(keys.dtype)
+                              .expand(B, 1, cfg.dim)], dim=1)
             text_mask = torch.cat([text_mask, text_mask.new_ones((B, 1))],
                                   dim=1)
         queries = self.mel_encoder(mel, mel_mask)
 
         # Pairwise squared L2 via one batched matmul:
-        # |q|^2 - 2 q.k + |k|^2, energies = -temperature * dist^2.
-        q2 = torch.sum(queries * queries, dim=-1, keepdim=True)  # [B,T_y,1]
-        k2 = torch.sum(keys * keys, dim=-1)[:, None, :]          # [B,1,T_x]
-        qk = torch.bmm(queries, keys.transpose(1, 2))            # [B,T_y,T_x]
+        # |q|^2 - 2 q.k + |k|^2, energies = -temperature * dist^2, all in
+        # float32. In bfloat16 the product's inputs are bfloat16 and it
+        # accumulates in float32, as jnp.einsum(preferred_element_type=
+        # float32) does: the product of two bfloat16 values is exact in
+        # float32, so upcasting the inputs gives that on both devices (TF32
+        # is off on the card). `torch.bmm(..., out_dtype=torch.float32)`
+        # would read bfloat16 directly, but exists on CUDA only, so the
+        # CPU tests could not hold it; it is left for a performance change.
+        qf = queries.float()
+        kf = keys.float()
+        q2 = torch.sum(qf * qf, dim=-1, keepdim=True)            # [B,T_y,1]
+        k2 = torch.sum(kf * kf, dim=-1)[:, None, :]              # [B,1,T_x]
+        qk = torch.bmm(qf, kf.transpose(1, 2))                   # [B,T_y,T_x]
         energies = -cfg.temperature * (q2 - 2.0 * qk + k2)
         energies = torch.where(text_mask[:, None, :] > 0, energies, -1e9)
         if cfg.model_pauses and (pause_bias is not None or cfg.pause_bias):
@@ -197,7 +222,10 @@ class OTAAligner(nn.Module):
             # Over the label axis (tokens + pause class): the pause key
             # decodes to the silence spectrum, which anchors silence
             # frames to the pause class.
-            decoded = self.mel_decoder(keys)                # [B,L,n_mels]
+            dec = self.mel_decoder
+            dt = keys.dtype                  # the compute dtype; out float32
+            decoded = F.linear(keys, dec.weight.to(dt),
+                               dec.bias.to(dt)).float()     # [B,L,n_mels]
             recon = torch.bmm(torch.exp(log_attn_labels), decoded)
             frame_mask = mel_mask[..., None]
             loss_recon = (torch.sum(frame_mask * (recon - mel) ** 2)

@@ -1,6 +1,6 @@
-"""NumPy oracles for the skip-state (implicit-pause) lattice DPs, copied
-from aligner_tpu/ops/skip_dp.py (`n_states`, `mas_skip_single`,
-`forward_sum_skip_numpy`): the golden path the kernels and their plain
+"""NumPy oracles for the skip-state (implicit-pause) lattice DPs, copies
+of `n_states`, `mas_skip_single` and `forward_sum_skip_numpy` in
+aligner_tpu/ops/skip_dp.py: the golden path the kernels and their plain
 versions are held against.
 
 An optional, shared pause state sits between text tokens:

@@ -30,9 +30,11 @@ RECIPE = ["--recon", "--temperature", "0.15", "--bin-start", "3000",
           "--bin-ramp", "2000"]
 # name: (seed, corpus flags, train flags)
 ROWS = {
+    "baseline_s0": (0, [], []),
     "baseline_s1": (1, [], []),
     "baseline_s2": (2, [], []),
     "phone_s0": (0, ["--transcripts", "phone"], ["--tokenizer", "phone"]),
+    "bf16_s0": (0, [], ["--compute-dtype", "bfloat16"]),
 }
 
 

@@ -50,8 +50,8 @@ after 4):
      on the card against the plain one
   9. training path: train_aligner at B=16 on a synthetic corpus, launch
      counts, checkpoint restore and a resumed step, parameter gradients
-     against a CPU copy, step times at B=16 and at B=64 x 2048 frames, a
-     torch.profiler breakdown of the B=16 step
+     against a CPU copy, step times at B=16 and at B=64 x 2048 frames,
+     torch.profiler breakdowns of both steps, the latter's peak memory
  10. `python -m aligner_tpu_torch demo-ota --device cuda` as a subprocess
  11. H4 (skip-state Viterbi) against mas_skip_plain and the numpy oracle,
      bit-identical, with edge items, two enter costs and T_s > 1024, its
@@ -118,10 +118,30 @@ after 4):
      fallback within a frame a token), the config.json keys, the corpus
      load time and the wall a step; `python -m aligner_tpu_torch align
      --device cuda` as a subprocess writing the same records; each
-     output's scores (`score_wav`), printed and not gated
+     output's scores (`score_wav`), printed and not gated; a fourth run
+     trains OTA `--recon --temperature 0.15 --compute-dtype bfloat16`
+     (H1-H3) with `compute_dtype` in its config.json
+ 21. bfloat16 compute with every plain version refused: train_aligner at
+     the CLI width for 10 steps pause-blind (phase 9's batches) and
+     pause-aware (phase 13's, with the pause_bias curriculum): the loss
+     falls, the parameters stay float32, the lattice is float32 and the
+     hard path takes one state a live frame; launch counts (H1-H3; H4-H6);
+     step times and profiles beside phases 9 and 13's float32 steps;
+     config 5 (B=64 x 2048, 3 steps) with its profile and peak memory,
+     beside phase 9's float32 step; the card's bf16 encoders and log_attn
+     against a CPU copy's at the tolerances of tests/test_torch_bf16.py
+ 22. maximum_path(implementation="cpp") on CUDA tensors equal to H1 at
+     B=32 128x1024 and B=1 64x256, with launch counts (auto: one H1;
+     cpp: none), and both routes' walls at B=1 (median of 50)
+ 23. examples/batch_serving_torch.py and
+     examples/vits_style_integration_torch.py with --device cuda, then
+     the conformance sweeps (`aligner_tpu_torch.conformance` and
+     `conformance_losses`, one seed) with every plain version refused to
+     the wrappers: every case bit-identical or within tolerance, every
+     plan reached, the count of cases logged
 
 The second-to-last line is a JSON object listing the kernels (launches by
-path: serving, training, pauses, mobo, two_pass, wav); the last is
+path: serving, training, pauses, mobo, two_pass, wav, bf16); the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero without a result; so it does without a CUDA device, or
 without the package beside it. Nothing runs on the CPU in its place; the
@@ -141,6 +161,9 @@ import time
 
 import numpy as np
 import torch
+
+from aligner_tpu_torch.utils.profiling import (device_time_by_kernel,
+                                               measure_device_time)
 
 B_MAS, T_X, T_Y = 32, 128, 1024          # headline MAS shape (bench.py)
 B_SERVE = 256                            # serving batch of the two-pass route
@@ -164,7 +187,6 @@ B_LONG, T_Y_LONG = 64, 2048              # BASELINE.json config 5
 # plain versions on the card, on the same lattice.
 GRAD_REL_LIMIT = 1e-2
 MEL_ATOL = 1e-4                          # card (cuFFT) vs CPU log-mel
-PROFILE_TRIES = 3                        # profiler sessions before failing
 DEMO_STEPS = 30
 PAUSE_UTTERANCES = 160
 ENTER_COSTS = (0.0, -1.2, 0.6)
@@ -1086,8 +1108,9 @@ def mas_times(dev):
            f"{ms * 1e6 / int(sty.max()):.1f} ns a frame over the longest "
            f"item's {int(sty.max())}")
     mask = lattice_mask(tx, ty, T_X, T_Y)
-    path_ms, kernels = device_ms(lambda: at.maximum_path(v, mask), 20,
-                                 "mas_kernel")
+    times = device_time_by_kernel(lambda: at.maximum_path(v, mask),
+                                  iters=20, name_prefix="mas_kernel")
+    path_ms, kernels = sum(times.values()) * 1e3, list(times)
     request = serving_requests()[0]
     aligner = at.BatchAligner(max_text=T_X, max_mel=T_Y, max_batch=32,
                               device=dev)
@@ -1187,36 +1210,6 @@ def skip_planes_in_device_memory():
         yield
 
 
-def device_ms(fn, reps, kernel=None):
-    """(ms a call, kernel names) by torch.profiler: the device time of the
-    kernels fn launches (of those whose name holds `kernel`, if given),
-    summed over reps calls after one warm-up call, per call. Unlike CUDA
-    events around the call, it leaves out the host's launch work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    # Now and then CUPTI hands a session back with no kernel records at
-    # all; such a session is profiled again, up to PROFILE_TRIES times.
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation
-                  and (kernel is None or kernel in e.key)]
-        if events:
-            return (sum(e.self_device_time_total for e in events) / 1e3
-                    / reps, [e.key[:60] for e in events])
-        log(7, f"the profiler saw no kernel ({kernel or 'any'}) of one "
-               "session; profiling again")
-    raise AssertionError(f"the profiler saw no kernel of {fn} in "
-                         f"{PROFILE_TRIES} sessions")
-
-
 def expand_device_times(dev):
     """H12 against its one library call (`torch.eq` into a float32
     output) at B=32 and B=256, 128x1024, by the profiler's device time of
@@ -1236,7 +1229,8 @@ def expand_device_times(dev):
                       runs["torch.eq"][0]())
         line = []
         for name, (run, kernel) in runs.items():
-            ms, keys = device_ms(run, 50, kernel)
+            times = device_time_by_kernel(run, iters=50, name_prefix=kernel)
+            ms, keys = sum(times.values()) * 1e3, [k[:60] for k in times]
             line.append(f"{name} {ms:.4f} ms of device time (kernels "
                         f"{keys}), {cuda_ms(run, 50):.4f} ms by events")
         log(7, f"mas_expand_kernel against its library call, B={B} "
@@ -1270,7 +1264,7 @@ def walk_device_times(dev):
                  "mas_walk_chains_kernel"),
                 ("H14 K=4", lambda: mk.mas_backtrack(bits, tx, ty, chains=4),
                  "mas_walk_chains_kernel")):
-            ms, _ = device_ms(run, 50, kernel)
+            ms = measure_device_time(run, iters=50, name_prefix=kernel) * 1e3
             step_ns[name] = ms * 1e6 / frames
             line.append(f"{name} {ms:.4f} ms of device time "
                         f"({step_ns[name]:.1f} ns a frame), "
@@ -1576,6 +1570,7 @@ def profile_step(phase, name, step, state, batch, reps=5):
                f"share {1 - busy / wall:.3f}) in "
                f"{sum(c for _, c, _ in kernels):g} device operations; "
                f"largest: {top}; the package's kernels: {ours}")
+    return wall, busy
 
 
 def phase_train(dev):
@@ -1667,30 +1662,27 @@ def phase_train(dev):
 
     step = make_train_step(fresh, bin_start=0, bin_ramp=1)
     step16 = step_ms(step, restored, batch, 10)
-    profile_step(9, f"pause-blind B={B_OTA}", step, restored, batch)
+    profile16 = profile_step(9, f"pause-blind B={B_OTA}", step, restored,
+                             batch)
     long_model = at.OTAAligner(config, device=dev)
     long_state = create_train_state(long_model, learning_rate=LR)
-    rng = np.random.default_rng(9)
-    text_lengths = rng.integers(T_X // 2, T_X + 1, B_LONG)
-    long_batch = {
-        "tokens": torch.from_numpy(rng.integers(1, VOCAB, (B_LONG, T_X))),
-        "mel": torch.from_numpy(rng.standard_normal(
-            (B_LONG, T_Y_LONG, N_MELS)).astype(np.float32)),
-        "text_lengths": torch.from_numpy(text_lengths),
-        "mel_lengths": torch.from_numpy(np.maximum(text_lengths, rng.integers(
-            T_Y_LONG // 2, T_Y_LONG + 1, B_LONG)))}
-    long_batch["mel_lengths"][0] = T_Y_LONG
-    long_batch = {k: v.to(dev) for k, v in long_batch.items()}
+    long_batch = config5_batch(dev)
+    long_step = make_train_step(long_model, bin_start=0, bin_ramp=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     at.reset_kernel_launches()
-    step64 = step_ms(make_train_step(long_model, bin_start=0, bin_ramp=1),
-                     long_state, long_batch, 3)
+    step64 = step_ms(long_step, long_state, long_batch, 3)
     require_launches("config-5 step", at.kernel_launches(), 4)
+    profile64 = profile_step(9, f"float32 config 5 (B={B_LONG} x "
+                                f"{T_Y_LONG})", long_step, long_state,
+                             long_batch, reps=3)
+    peak64 = torch.cuda.max_memory_allocated(dev) / 2**30
     log(9, f"step time (host clock, synchronised, median): B={B_OTA} "
            f"T_mel<={T_Y} {step16:.2f} ms over 10 steps; B={B_LONG} "
-           f"T_mel={T_Y_LONG} {step64:.2f} ms over 3 steps; "
-           f"peak device memory "
-           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return launches, step_wall, step16, step64
+           f"T_mel={T_Y_LONG} {step64:.2f} ms over 3 steps; peak device "
+           f"memory of the config-5 steps {peak64:.2f} GiB")
+    return (launches, step_wall, (step16, profile16),
+            (step64, *profile64, peak64))
 
 
 def grad_vs_cpu(model, config, batch):
@@ -2104,7 +2096,8 @@ def phase_pause_path(dev, blind_step_ms):
         step = make_train_step(fresh, bin_start=0, bin_ramp=1,
                                apply_extra=curriculum)
         pause_step_ms = step_ms(step, restored, first, 10)
-        profile_step(13, f"pause B={B_OTA}", step, restored, first)
+        pause_profile = profile_step(13, f"pause B={B_OTA}", step, restored,
+                                     first)
     slices = sum(-(-len(r) // B_OTA) for r in requests)
     shapes = sorted({tuple(b["mel"].shape[:2]) for b in batches})
     log(13, f"SkipBatchAligner 3x40 requests, pause OTA forward B={B_OTA} "
@@ -2207,7 +2200,7 @@ def phase_pause_path(dev, blind_step_ms):
             f"step in the loop; synchronised step, median of 10: pause "
             f"model {pause_step_ms:.2f} ms at {tuple(first['mel'].shape[:2])}"
             f" beside the pause-blind model's {blind_step_ms:.2f} ms")
-    return launches
+    return launches, pause_step_ms, pause_profile
 
 
 def plain_skip_loss(logp, tl, ml):
@@ -2700,7 +2693,9 @@ WAV_RUNS = (
     ("pauses", "phone", ["--model-pauses", "--tokenizer", "phone"],
      SKIP_KERNELS),
     ("romo", "phone", ["--model", "romo", "--tokenizer", "phone"],
-     ("forward_sum_alpha_kernel", "forward_sum_grad_kernel") + MOBO_KERNELS))
+     ("forward_sum_alpha_kernel", "forward_sum_grad_kernel") + MOBO_KERNELS),
+    ("bf16", "char", ["--recon", "--temperature", "0.15", "--compute-dtype",
+                      "bfloat16"], TOKEN_KERNELS))
 CONFIG_KEYS = {"model_class", "model_config", "tokenizer", "train_seed",
                "shuffle"}
 
@@ -2764,13 +2759,16 @@ def check_alignments(name, corpus, ckpt, out, textgrids, tokenizer):
         cfg = json.load(f)
     keys = CONFIG_KEYS | ({"tokenizer_vocab"} if tokenizer == "phone"
                           else set())
-    fields = {"ota": OTAConfig, "pauses": OTAConfig,
+    fields = {"ota": OTAConfig, "pauses": OTAConfig, "bf16": OTAConfig,
               "romo": RoMoConfig, "mobo": MoBoConfig}[name]
     if set(cfg) != keys or set(cfg["model_config"]) != set(
             fields.__dataclass_fields__) or cfg["tokenizer"] != (
             PhoneTokenizer.__name__ if tokenizer == "phone"
             else "CharTokenizer"):
         raise AssertionError(f"{name}: config.json {cfg}")
+    if (cfg["model_config"].get("compute_dtype") == "bfloat16") != (
+            name == "bf16"):
+        raise AssertionError(f"{name}: compute_dtype in config.json {cfg}")
     return recs, exact
 
 
@@ -2865,6 +2863,334 @@ def phase_wav(dev):
             f"launches {launches}")
     return launches
 
+BF16_STEPS = 10                           # steps of each bf16 training run
+BF16_ULPS = 2                             # as tests/test_torch_bf16.py
+# log_attn, card vs CPU from the same bf16 encodings: float32 sums of
+# |q|^2, q.k and |k|^2 of a few hundred each (an ulp of 3e-5) times the
+# temperature, and a log-softmax.
+BF16_REST_ATOL = 1e-3
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at magnitude x (8 bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def bf16_train(phase, name, config, batches, dev, **kwargs):
+    """train_aligner for BF16_STEPS steps with every plain version refused;
+    returns (model, state, launches). Checks that the loss falls and that
+    the parameters stay float32."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train.loop import train_aligner
+    model = at.OTAAligner(config, device=dev)
+    torch.cuda.synchronize()
+    at.reset_kernel_launches()
+    with plain_versions_refused():
+        state, history = train_aligner(
+            model, batches, steps=BF16_STEPS, device=dev, learning_rate=LR,
+            bin_start=BIN_START, bin_ramp=BIN_RAMP, log_every=1,
+            log_fn=lambda line: None, **kwargs)
+        torch.cuda.synchronize()
+    launches = at.kernel_launches()
+    train = [r for r in history if "loss" in r]
+    for rec in history:
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{name}: a metric is not finite: {rec}")
+    if len(train) != BF16_STEPS or not train[-1]["loss"] < train[0]["loss"]:
+        raise AssertionError(f"{name}: loss did not fall over "
+                             f"{len(train)} steps: {train[0]['loss']} -> "
+                             f"{train[-1]['loss']}")
+    bad = [k for k, p in model.named_parameters() if p.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{name}: parameters not float32: {bad}")
+    log(phase, f"{name}: train_aligner {BF16_STEPS} steps, loss "
+               f"{train[0]['loss']:.4f} -> {train[-1]['loss']:.4f}, every "
+               f"parameter float32, no plain version reached; kernel "
+               f"launches {launches}")
+    return model, state, launches
+
+
+def bf16_forward_checks(phase, name, model, batch, skip):
+    """On one batch: log_attn float32 and the hard path one state a live
+    frame, none on padding."""
+    with torch.no_grad():
+        out = model(batch["tokens"], batch["mel"], batch["text_lengths"],
+                    batch["mel_lengths"])
+    if out["log_attn"].dtype != torch.float32 or \
+            out["logp_with_prior"].dtype != torch.float32:
+        raise AssertionError(f"{name}: lattice dtype "
+                             f"{out['log_attn'].dtype}")
+    per_frame = out["hard_path"].sum(-1)
+    T_y = per_frame.shape[1]
+    live = (torch.arange(T_y, device=per_frame.device)[None, :]
+            < batch["mel_lengths"][:, None]).float()
+    if not torch.equal(per_frame, live):
+        raise AssertionError(f"{name}: the hard path does not cover each "
+                             "live frame once")
+    log(phase, f"{name}: log_attn and logp_with_prior float32, the hard "
+               f"path ({'H4' if skip else 'H1'}) one state on each live "
+               f"frame of {tuple(batch['mel'].shape[:2])}")
+    return out
+
+
+def bf16_card_vs_cpu(phase, model, config, batch):
+    """The bf16 forward on the card against a CPU copy of the same model.
+    The encoders are held within BF16_ULPS bfloat16 ulps of their largest
+    magnitude, the tolerance of tests/test_torch_bf16.py. Past them the
+    forward is float32, so the CPU copy is run again on the card's encoder
+    outputs and its log_attn held within BF16_REST_ATOL of the card's on
+    live tokens. The end-to-end log_attn difference (an encoder ulp through
+    -temperature * |q - k|^2 at dim 192 is about 10x the CPU test's, whose
+    dim is 16) and the items whose hard paths differ are reported, not
+    gated: a one-ulp lattice difference can flip a near tie."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.utils.masks import sequence_mask
+    cpu_model = at.OTAAligner(config, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    args = ("tokens", "mel", "text_lengths", "mel_lengths")
+    errs, card_enc = {}, {}
+    with torch.no_grad():
+        for which, x, lengths in (("text", "tokens", "text_lengths"),
+                                  ("mel", "mel", "mel_lengths")):
+            outs = []
+            for m, b in ((model, batch), (cpu_model, cpu_batch)):
+                mask = sequence_mask(b[lengths], b[x].shape[1])
+                enc = getattr(m, f"{which}_encoder")(b[x], mask)
+                if enc.dtype != torch.bfloat16:
+                    raise AssertionError(f"{which} encoder gave {enc.dtype}")
+                outs.append(enc.cpu())
+            card, cpu = outs
+            card_enc[which] = card
+            err = (card.float() - cpu.float()).abs().max().item()
+            limit = BF16_ULPS * bf16_ulp(cpu.float().abs().max().item())
+            if not err <= limit:
+                raise AssertionError(f"bf16 {which} encoder: card vs CPU "
+                                     f"{err} > {limit}")
+            errs[which] = (err, limit)
+        card = model(*(batch[k] for k in args))
+        cpu = cpu_model(*(cpu_batch[k] for k in args))
+        for which in card_enc:                  # the card's encoder outputs
+            getattr(cpu_model, f"{which}_encoder").forward = (
+                lambda *a, out=card_enc[which]: out)
+        rest = cpu_model(*(cpu_batch[k] for k in args))
+    # Padded tokens sit at -1e9 less the log-normaliser, where a float32
+    # ulp is 64: compare the live tokens, and require both masked there.
+    card_la = card["log_attn"].cpu()
+    live = card_la > -1e8
+    diffs = {}
+    for name, other in (("end to end", cpu), ("on the card's encodings",
+                                              rest)):
+        if not torch.equal(live, other["log_attn"] > -1e8):
+            raise AssertionError("bf16 log_attn: card and CPU mask other "
+                                 "cells")
+        diffs[name] = ((card_la - other["log_attn"])[live].abs().max()
+                       .item(), int((card["hard_path"].cpu()
+                                     != other["hard_path"]).flatten(1)
+                                    .any(1).sum()))
+    if not diffs["on the card's encodings"][0] <= BF16_REST_ATOL:
+        raise AssertionError(f"bf16 log_attn card vs CPU on the card's "
+                             f"encodings {diffs}")
+    log(phase, f"bf16 forward, card against a CPU copy at "
+               f"{tuple(batch['mel'].shape[:2])}: text encoder max abs err "
+               f"{errs['text'][0]:.4g} (limit {errs['text'][1]:.4g}), mel "
+               f"encoder {errs['mel'][0]:.4g} (limit {errs['mel'][1]:.4g}); "
+               f"log_attn on live tokens, max abs err and items whose hard "
+               f"paths differ, of {len(batch['tokens'])}: " + "; ".join(
+                   f"{name} {err:.4g}, {n}" for name, (err, n)
+                   in diffs.items())
+               + f" (gated at {BF16_REST_ATOL} on the card's encodings)")
+
+
+def config5_batch(dev):
+    """BASELINE.json config 5 (B=64, T_mel=2048) from a seed."""
+    rng = np.random.default_rng(9)
+    text_lengths = rng.integers(T_X // 2, T_X + 1, B_LONG)
+    batch = {
+        "tokens": torch.from_numpy(rng.integers(1, VOCAB, (B_LONG, T_X))),
+        "mel": torch.from_numpy(rng.standard_normal(
+            (B_LONG, T_Y_LONG, N_MELS)).astype(np.float32)),
+        "text_lengths": torch.from_numpy(text_lengths),
+        "mel_lengths": torch.from_numpy(np.maximum(text_lengths, rng.integers(
+            T_Y_LONG // 2, T_Y_LONG + 1, B_LONG)))}
+    batch["mel_lengths"][0] = T_Y_LONG
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def phase_bf16(dev, float32_steps):
+    """The bf16 OTA train step at the CLI width with every plain version
+    refused: pause-blind at B=16 (phase 9's batches) and config 5, and
+    pause-aware at B=16 (phase 13's); loss, dtypes, the hard path, launch
+    counts, step times and profiles beside the float32 steps of this run
+    (phases 9 and 13, passed in), and the card's bf16 forward against the
+    CPU's. Returns the launches
+    of the training runs."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train import create_train_state, make_train_step
+    t_phase = time.perf_counter()
+    common = dict(vocab_size=VOCAB, n_mels=N_MELS, dim=DIM, hidden=HIDDEN,
+                  use_recon=True, compute_dtype="bfloat16")
+    launches = {}
+
+    def add(run):
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+
+    config = at.OTAConfig(**common)
+    batches, _ = train_batches()
+    model, state, run = bf16_train(21, f"bf16 pause-blind B={B_OTA}", config,
+                                   batches, dev)
+    require_launches("bf16 training", run, BF16_STEPS)
+    add(run)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+    bf16_forward_checks(21, "bf16 pause-blind", model, batch, skip=False)
+    bf16_card_vs_cpu(21, model, config, batch)
+    step = make_train_step(model, bin_start=0, bin_ramp=1)
+    with plain_versions_refused():
+        ms = step_ms(step, state, batch, 10)
+        wall, busy = profile_step(21, f"bf16 pause-blind B={B_OTA}", step,
+                                  state, batch)
+    f32_ms, (f32_wall, f32_busy) = float32_steps["pause-blind"]
+    log(21, f"step B={B_OTA} {tuple(batch['mel'].shape[:2])}: bf16 "
+            f"{ms:.2f} ms synchronised (median of 10), back to back "
+            f"{wall:.4f} ms, device busy {busy:.4f} ms; float32 (phase 9) "
+            f"{f32_ms:.2f} ms, {f32_wall:.4f} ms, {f32_busy:.4f} ms")
+
+    pause_config = at.OTAConfig(**common, model_pauses=True)
+    pause_batch_list = pause_batches()
+    anneal = BF16_STEPS // 2
+
+    def curriculum(step_no):                     # -3 -> 0, as phase 13
+        return {"pause_bias": -3.0 + 3.0 * min(step_no / anneal, 1.0)}
+
+    pmodel, pstate, run = bf16_train(
+        21, f"bf16 pause-aware B={B_OTA}", pause_config, pause_batch_list,
+        dev, apply_extra=curriculum)
+    require_launches("bf16 pause training", run, BF16_STEPS, SKIP_KERNELS)
+    add(run)
+    pbatch = {k: torch.as_tensor(v).to(dev)
+              for k, v in pause_batch_list[0].items()}
+    bf16_forward_checks(21, "bf16 pause-aware", pmodel, pbatch, skip=True)
+    step = make_train_step(pmodel, bin_start=0, bin_ramp=1,
+                           apply_extra=curriculum)
+    with plain_versions_refused():
+        ms = step_ms(step, pstate, pbatch, 10)
+        wall, busy = profile_step(21, f"bf16 pause B={B_OTA}", step, pstate,
+                                  pbatch)
+    f32_ms, (f32_wall, f32_busy) = float32_steps["pause"]
+    log(21, f"pause step B={B_OTA} {tuple(pbatch['mel'].shape[:2])}: bf16 "
+            f"{ms:.2f} ms synchronised (median of 10), back to back "
+            f"{wall:.4f} ms, device busy {busy:.4f} ms; float32 (phase 13) "
+            f"{f32_ms:.2f} ms, {f32_wall:.4f} ms, {f32_busy:.4f} ms")
+    del pmodel, pstate, model, state
+
+    long_model = at.OTAAligner(config, device=dev)
+    long_state = create_train_state(long_model, learning_rate=LR)
+    long_batch = config5_batch(dev)
+    step = make_train_step(long_model, bin_start=0, bin_ramp=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    at.reset_kernel_launches()
+    with plain_versions_refused():
+        ms = step_ms(step, long_state, long_batch, 3)
+        wall, busy = profile_step(21, f"bfloat16 config 5 (B={B_LONG} x "
+                                      f"{T_Y_LONG})", step, long_state,
+                                  long_batch, reps=3)
+    run = at.kernel_launches()
+    require_launches("bfloat16 config-5 step", run, 3)
+    add(run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    f32_ms, f32_wall, f32_busy, f32_peak = float32_steps["config 5"]
+    log(21, f"config 5 (B={B_LONG} x {T_Y_LONG}, 3 steps): bfloat16 "
+            f"{ms:.2f} ms synchronised (median), back to back {wall:.4f} ms, "
+            f"device busy {busy:.4f} ms, peak {peak:.2f} GiB; float32 "
+            f"(phase 9) {f32_ms:.2f} ms, {f32_wall:.4f} ms, {f32_busy:.4f} "
+            f"ms, peak {f32_peak:.2f} GiB")
+    log(21, f"phase in {time.perf_counter() - t_phase:.1f} s; kernel "
+            f"launches of the bf16 steps {launches}")
+    return launches
+
+
+def phase_cpp_oracle(dev):
+    """maximum_path(implementation="cpp") on CUDA tensors against H1 at
+    B=32 128x1024 and at B=1 64x256 (BASELINE.json config 1), and both
+    routes' walls at B=1 by the host clock (median of 50, synchronised).
+    Nothing is routed on the strength of these times."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.utils.masks import lattice_mask
+    walls = {}
+    for seed, (B, T_x, T_y) in ((0, (B_MAS, T_X, T_Y)), (1, (1, 64, 256))):
+        value, t_x, t_y = ragged(seed, B, T_x, T_y)
+        v, tx, ty = (torch.from_numpy(a).to(dev) for a in (value, t_x, t_y))
+        mask = lattice_mask(tx, ty, T_x, T_y)
+        at.reset_kernel_launches()
+        host = at.maximum_path(v, mask, implementation="cpp")
+        if at.kernel_launches():
+            raise AssertionError(f"the cpp route launched "
+                                 f"{at.kernel_launches()}")
+        auto = at.maximum_path(v, mask)
+        torch.cuda.synchronize()
+        if at.kernel_launches() != {"mas_kernel": 1}:
+            raise AssertionError(f"auto launched {at.kernel_launches()}")
+        if host.device != v.device or host.dtype != v.dtype:
+            raise AssertionError(f"cpp gave {host.dtype} on {host.device}")
+        require_equal(f"cpp vs H1, B={B} {T_x}x{T_y}", host, auto)
+        log(22, f"maximum_path(implementation='cpp') on CUDA tensors, B={B} "
+                f"{T_x}x{T_y}: equal to H1's path ('auto', one mas_kernel "
+                f"launch; cpp none)")
+        if B == 1:
+            for name, impl in (("cpp", "cpp"), ("H1", "auto")):
+                walls[name] = wall_ms(lambda impl=impl: at.maximum_path(
+                    v, mask, implementation=impl), 50)
+            h1_device = measure_device_time(
+                lambda: at.maximum_path(v, mask), iters=50,
+                name_prefix="mas_kernel") * 1e3
+    log(22, f"maximum_path at B=1 64x256 (host clock, synchronised, median "
+            f"of 50): cpp {walls['cpp']:.4f} ms, H1 ('auto') "
+            f"{walls['H1']:.4f} ms (H1's device time in it {h1_device:.4f} "
+            f"ms); no route is chosen from these")
+
+
+def load_example(name):
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(here, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples_and_conformance(dev):
+    """Both examples with --device cuda at their default sizes, then both
+    conformance sweeps with one seed and every plain version refused to
+    the kernels' wrappers (the sweeps' references are bound at import)."""
+    from aligner_tpu_torch import conformance, conformance_losses
+    for name in ("batch_serving_torch", "vits_style_integration_torch"):
+        t0 = time.perf_counter()
+        rc = load_example(name).main(["--device", dev.type])
+        if rc != 0:
+            raise AssertionError(f"examples/{name}.py returned {rc}")
+        log(23, f"examples/{name}.py --device {dev.type} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    for module in (conformance, conformance_losses):
+        t0 = time.perf_counter()
+        lines = []
+        try:
+            with plain_versions_refused():
+                cases = module.sweep(1, dev, None, out=lines.append)
+                torch.cuda.synchronize()
+        except AssertionError:
+            for line in lines[-5:]:
+                log(23, line)
+            raise
+        skipped = [line for line in lines if line.startswith("SKIP")]
+        log(23, f"{module.__name__} --seeds 1: all {cases} cases conform "
+                f"({len(skipped)} route-shape pairs a plan cannot take "
+                f"skipped), every plan reached, no plain version reached by "
+                f"a wrapper, in {time.perf_counter() - t0:.1f} s; "
+                f"{lines[-1]}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2885,17 +3211,23 @@ def main():
     phase_check_main(dev, mas_run, ota_run, serving_run)
     times = phase_times(dev)
     grad_err = phase_grad(dev)
-    training, _, blind_step_ms, _ = phase_train(dev)
+    training, _, blind_step, step64 = phase_train(dev)
     phase_demo(dev)
     skip_mas_err = phase_skip_mas(dev)
     skip_alpha_err, skip_gamma_err = phase_skip_sums(dev)
-    pauses = phase_pause_path(dev, blind_step_ms)
+    pauses, pause_step_ms, pause_profile = phase_pause_path(
+        dev, blind_step[0])
     phase_demo_pauses(dev)
     mobo_errs = phase_mobo_kernels(dev)
     mobo = phase_mobo_path(dev)
     phase_demo_mobo(dev)
     two_pass = phase_two_pass_path(dev)
     wav = phase_wav(dev)
+    bf16 = phase_bf16(dev, {"pause-blind": blind_step,
+                            "pause": (pause_step_ms, pause_profile),
+                            "config 5": step64})
+    phase_cpp_oracle(dev)
+    phase_examples_and_conformance(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -2924,7 +3256,8 @@ def main():
                    "pauses": pauses.get(name, 0),
                    "mobo": mobo.get(name, 0),
                    "two_pass": two_pass.get(name, 0),
-                   "wav": wav.get(name, 0)}
+                   "wav": wav.get(name, 0),
+                   "bf16": bf16.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

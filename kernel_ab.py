@@ -18,9 +18,9 @@ root builds that tree's kernels and times them with CUDA events (mean of
   * the walks over `mas_bits`' bytes at B=32 and B=256, 128x1024 ragged:
     H1's walk alone (`mas_backtrack`), H10 (`form="stage"`), H11 (the
     index walk, `mas_walk_idx`) and H14 (`chains=2` and `chains=4`), by
-    the profiler's device time of every
-    kernel a call launches (a tree's zero fill included where its walk
-    needs one), beside CUDA events around the call, which at B=32 read
+    the profiler's device time of every kernel a call launches (a tree's
+    zero fill included where its walk needs one; every tree is timed by
+    this checkout's `aligner_tpu_torch/utils/profiling.py`), beside CUDA events around the call, which at B=32 read
     the host's launch work for the call more than the card;
   * H8 (`mobo_bp`) at B=16, 64, 128, 133 and 256, 128 tokens x 1025
     positions, D=32, and at B=16, D=1; where the tree has H8's wide form
@@ -33,6 +33,7 @@ natural layout (`mas_kernel<1, 32, true, true>`), its instruction count
 and how many times it reads the shared-memory window's base (`S2UR ...
 SR_CgaCtaId`). Needs a card, and nvcc and cuobjdump for --sass.
 """
+import importlib.util
 import os
 import re
 import subprocess
@@ -75,6 +76,24 @@ def forced(module, name, value, fn):
         setattr(module, name, kept)
 
 
+def own_profiler():
+    """aligner_tpu_torch/utils/profiling.py of kernel_ab.py's own checkout,
+    loaded by its path, so that every tree is timed by one profiler."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "aligner_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("kernel_ab_profiling", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def device_ms(profiler, fn):
+    """(ms a call, kernel names) of every kernel fn launches, by the
+    profiler's device time over 20 calls."""
+    times = profiler.device_time_by_kernel(fn, iters=20)
+    return sum(times.values()) * 1e3, [k[:60] for k in times]
+
+
 def run_tree(label):
     """The timings of the tree in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -85,6 +104,7 @@ def run_tree(label):
     from aligner_tpu_torch.ops import mobo_kernel as mb
 
     dev = torch.device("cuda", 0)
+    profiler = own_profiler()
     cs.phase_build()
 
     def mas_inputs(B):
@@ -109,7 +129,7 @@ def run_tree(label):
                                mk.mas_walk_idx(bits, txb, tyb))
     for rep in range(3):
         for name, fn in walks.items():
-            ms, kernels = cs.device_ms(fn, 20)
+            ms, kernels = device_ms(profiler, fn)
             print(f"{label} rep {rep}: {name} {ms:.4f} ms of device time "
                   f"(kernels {kernels}), {cs.cuda_ms(fn, 20):.4f} ms by "
                   f"events", flush=True)

@@ -277,17 +277,9 @@ def error_argv(case, tmp_path, corpus, port_ckpt, mobo_ckpt):
     if case == "pauses_outside_ota":
         return ([*train_argv, "--model", "mobo", "--model-pauses"], SystemExit,
                 "OTA capability")
-    if case == "bfloat16":
-        return ([*train_argv, "--compute-dtype", "bfloat16"], SystemExit,
-                "ROADMAP Queue 1 item 3")
     if case == "bfloat16_mobo":
         return ([*train_argv, "--model", "mobo", "--compute-dtype",
                  "bfloat16"], SystemExit, "wired for --model ota only")
-    if case == "bfloat16_checkpoint":
-        ckpt = edited_copy(port_ckpt, tmp_path,
-                           set_model_config(compute_dtype="bfloat16"))
-        return (["align", corpus, "--checkpoint-dir", ckpt, *out],
-                SystemExit, "ROADMAP Queue 1 item 3")
     if case == "zero_tokens":
         root = blank_corpus(tmp_path, ["aa", "   "])
         return (["train", root, *train_argv[2:], "--tokenizer", "phone"],
@@ -329,8 +321,8 @@ def error_argv(case, tmp_path, corpus, port_ckpt, mobo_ckpt):
 
 
 ERRORS = ["conflict", "pre_config", "pause_knobs_without_pauses",
-          "pause_knobs_on_mobo", "pauses_outside_ota", "bfloat16",
-          "bfloat16_mobo", "bfloat16_checkpoint", "zero_tokens",
+          "pause_knobs_on_mobo", "pauses_outside_ota", "bfloat16_mobo",
+          "zero_tokens",
           "no_phone_symbols", "missing_metadata", "missing_checkpoint",
           "unknown_family", "phone_vocab_missing", "vocab_size",
           "missing_step", "train_without_cuda", "align_without_cuda"]

@@ -124,10 +124,3 @@ def test_seeded_init_is_reproducible():
     b = OTAAligner(cfg, generator=torch.Generator().manual_seed(3))
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
-
-
-@pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16")])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        OTAAligner(OTAConfig(vocab_size=VOCAB, dim=DIM, hidden=HIDDEN,
-                             **{field: value}))

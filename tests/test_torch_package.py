@@ -119,7 +119,9 @@ def test_import_pulls_in_no_jax():
             "             'ops.mobo_kernel', 'models.mobo', 'models.romo',\n"
             "             'models.convert', 'bench_mas', 'ops.mel',\n"
             "             'ops.durations', 'ops.regularizers', 'data.files',\n"
-            "             'data.text', 'data.textgrid', 'score_wav'):\n"
+            "             'data.text', 'data.textgrid', 'score_wav',\n"
+            "             'native.build', 'utils.profiling', 'conformance',\n"
+            "             'conformance_losses'):\n"
             "    assert 'aligner_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -131,7 +133,13 @@ def test_import_pulls_in_no_jax():
     "aligner_tpu_torch/cli.py", "aligner_tpu_torch/_build.py",
     "aligner_tpu_torch/ops/mas_kernel.py",
     "aligner_tpu_torch/ops/__init__.py", "aligner_tpu_torch/ops/mel.py",
-    "aligner_tpu_torch/data/files.py", "aligner_tpu_torch/score_wav.py"])
+    "aligner_tpu_torch/data/files.py", "aligner_tpu_torch/score_wav.py",
+    "aligner_tpu_torch/native/build.py",
+    "aligner_tpu_torch/utils/profiling.py",
+    "aligner_tpu_torch/conformance.py",
+    "aligner_tpu_torch/conformance_losses.py",
+    "examples/batch_serving_torch.py",
+    "examples/vits_style_integration_torch.py"])
 def test_source_names_no_jax_import(path):
     """No import statement of the file reaches jax or the JAX package."""
     with open(os.path.join(REPO, path)) as f:
@@ -1067,3 +1075,62 @@ def test_cuda_main_path_never_runs_plain(cuda, monkeypatch):
     assert launches["mas_kernel"] >= 8
     assert launches["forward_sum_alpha_kernel"] >= 4
     assert launches["forward_sum_grad_kernel"] >= 3
+
+
+@pytest.mark.cuda
+def test_cpp_route_equals_h1_on_the_card(cuda):
+    """`maximum_path(implementation="cpp")` on CUDA tensors: the host
+    oracle's path, back on the card in value's dtype, equals H1's; "auto"
+    still launches H1."""
+    value, t_x, t_y = ragged(6, 8, 32, 96)
+    t_x[0], t_x[-1] = 16, 1                # the oracle takes 1 <= t_x <= t_y
+    mask = ((np.arange(32)[None, :, None] < t_x[:, None, None])
+            & (np.arange(96)[None, None, :] < t_y[:, None, None]))
+    v = torch.from_numpy(value).to(cuda)
+    m = torch.from_numpy(mask.astype(np.float32)).to(cuda)
+    at.reset_kernel_launches()
+    host = at.maximum_path(v, m, implementation="cpp")
+    assert at.kernel_launches() == {}
+    assert host.device == v.device and host.dtype == v.dtype
+    assert torch.equal(host, at.maximum_path(v, m))
+    assert at.kernel_launches() == {"mas_kernel": 1}
+
+
+@pytest.mark.cuda
+def test_bf16_forward_on_the_card_launches_h1_to_h3(cuda, monkeypatch):
+    """The bfloat16 OTA forward and a backward on the card: float32
+    parameters and lattice, H1 for the hard path, H2 and H3 for the
+    forward-sum loss, no plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(mas_kernel, "mas_plain", refuse)
+    monkeypatch.setattr(forward_sum_kernel, "alpha_plain", refuse)
+    monkeypatch.setattr(forward_sum_kernel, "gamma_plain", refuse)
+    model = at.OTAAligner(at.OTAConfig(vocab_size=20, dim=16, hidden=32,
+                                       use_recon=True,
+                                       compute_dtype="bfloat16"),
+                          device=cuda)
+    at.reset_kernel_launches()
+    out = model(*[t.to(cuda) for t in small_batch()])
+    (out["loss_forward_sum"] + out["loss_recon"]).backward()
+    torch.cuda.synchronize()
+    assert out["log_attn"].dtype == torch.float32
+    assert all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    assert at.kernel_launches() == {"mas_kernel": 1,
+                                    "forward_sum_alpha_kernel": 1,
+                                    "forward_sum_grad_kernel": 1}
+
+
+@pytest.mark.cuda
+def test_measure_device_time_sees_h1(cuda):
+    from aligner_tpu_torch.utils.profiling import (device_time_by_kernel,
+                                                   measure_device_time)
+    value, t_x, t_y = ragged(7, 8, 32, 96)
+    v, tx, ty = (torch.from_numpy(a).to(cuda) for a in (value, t_x, t_y))
+    times = device_time_by_kernel(lambda: mas_kernel.mas_path(v, tx, ty),
+                                  iters=5, name_prefix="mas_kernel")
+    assert times and all(s > 0 for s in times.values())
+    whole = measure_device_time(mas_kernel.mas_path, v, tx, ty, iters=5)
+    assert whole >= 0.5 * sum(times.values())

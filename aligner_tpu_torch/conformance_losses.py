@@ -18,7 +18,16 @@ The twin of scripts/conformance_sweep_losses.py:
   kernels' plain versions on the same device, rtol 1e-5 / atol 1e-6 (the
   tolerance of the kernels' own checks), and each valid item's total
   against a float64 NumPy forward-sum, rtol 1e-5 / atol 1e-3 (float32
-  sums over up to 1024 frames).
+  sums over up to 1024 frames);
+* the MoBo token sweeps H7 (alpha) and H9 (beta) against
+  `mobo_alpha_plain` and `mobo_beta_plain` (live cells within rtol 1e-6 /
+  atol 1e-5, dead cells below NEG / 2 on both sides: the tolerance of
+  their own checks), and H8's backpointers on tokens < t_x and durations
+  equal to `mobo_bp_plain`'s, with 0 past t_x, over every cluster plan
+  that `_cluster_plan` gives at the main path's width (C = 8, 2 and 1
+  blocks an item), H8's wide form past 132 items and D = 1, with edge
+  items (t_x = 1, a full item, an item without a boundary sequence,
+  t_x = 0).
 
 The plain versions are bound when this module is imported, so a harness
 that refuses them to the kernels' wrappers (chip_smoke.py) still lets the
@@ -37,15 +46,20 @@ import numpy as np
 import torch
 
 from .ops import forward_sum_kernel as fk
+from .ops import mobo_kernel as mb
 from .ops import skip_dp_kernel as sk
 from .ops.forward_sum import _masked_logp, _total_from_alphas, _valid_items
 from .ops.forward_sum_kernel import alpha_plain, gamma_plain
+from .ops.mobo import _prep_energies
+from .ops.mobo_kernel import (NEG, mobo_alpha_plain, mobo_beta_plain,
+                              mobo_bp_plain)
 from .ops.skip_dp import _total_from_alphas_skip, _valid_items_skip
 from .ops.skip_dp_kernel import alpha_skip_plain, gamma_skip_plain
 from .ops.skip_dp_reference import (forward_sum_skip_numpy, mas_skip_single,
                                     n_states)
 
 PLAIN_RTOL, PLAIN_ATOL = 1e-5, 1e-6
+MOBO_RTOL, MOBO_ATOL = 1e-6, 1e-5
 NUMPY_RTOL, NUMPY_ATOL = 1e-5, 1e-3
 # The float64 skip forward-sum is a Python loop over states and frames:
 # it checks the valid items of at most this many cells, two a case.
@@ -100,6 +114,20 @@ SKIP_FORWARD_SUM = [
     (4, 2500, 200, "short", -1.2, "(6,3)"),
     (4, 3500, 200, "short", 0.6, "(8,2)"),
 ]
+
+# (B, T_x, T_y, D, note): H7, H8 and H9 on a grid of T_y + 1 positions;
+# the plan is (C, w) of _cluster_plan and H8's (C, w, z_shared, bytes).
+MOBO = [
+    (16, 128, 1024, 32, "main path; C=8 w=129"),
+    (64, 128, 1024, 32, "C=2 w=513"),
+    (256, 128, 1024, 32, "C=1 w=1025; H8's wide form past 132 items"),
+    (16, 64, 300, 4, "small window"),
+    (4, 128, 130, 32, "slices barely wider than D: C=4 w=33"),
+    (8, 32, 100, 1, "D=1: the chain without its windows"),
+    (4, 8, 40, 8, "small"),
+]
+# The cluster plans of the main path's width that the grid must reach.
+MOBO_CLUSTER_PLANS = ((8, 129), (2, 513), (1, 1025))
 
 
 def lengths(rng, B, T_x, T_y, mode):
@@ -229,12 +257,77 @@ def check_skip_forward_sum(seed, B, T_x, T_y, mode, cost, device, plans):
                    f"H5/H6 plan {fk._sweep_plan(T_s)[1:3]}")
 
 
+def mobo_case(seed, B, T_x, T_y, D, device):
+    """The token-major grid of `_prep_energies` and the lengths: ragged
+    and feasible (t_x <= t_y <= t_x * D), with edge items 0-3: t_x = 1; a
+    full item; an item without a boundary sequence (t_y > t_x * D); t_x =
+    0."""
+    rng = np.random.default_rng(10000 * seed + B + T_x + T_y + D)
+    energies = rng.standard_normal((B, T_y, T_x), np.float32)
+    t_x = rng.integers(max(T_x // 2, 1), T_x + 1, B)
+    t_y = np.clip(rng.integers(max(T_y // 4, 1), T_y + 1, B), t_x,
+                  np.minimum(t_x * D, T_y))
+    edges = min(B, 4)
+    t_x[:edges] = [1, T_x, min(4, T_x), 0][:edges]
+    t_y[:edges] = [max(min(D, T_y) - 1, 1), T_y, min(4 * D + 40, T_y),
+                   T_y // 2][:edges]
+    tx, ty = (torch.from_numpy(a.astype(np.int32)).to(device)
+              for a in (t_x, t_y))
+    return _prep_energies(torch.from_numpy(energies).to(device), tx, ty), \
+        tx, ty
+
+
+def live_close(got, want):
+    """(ok, max abs error on live cells): live cells (above NEG / 2 in the
+    plain version) within MOBO_RTOL / MOBO_ATOL, dead cells below NEG / 2
+    on both sides."""
+    live = want > 0.5 * NEG
+    ok, err = close(got[live], want[live], MOBO_RTOL, MOBO_ATOL)
+    ok = ok and bool(torch.isfinite(got).all()) \
+        and bool((got[~live] <= 0.5 * NEG).all())
+    return ok, err
+
+
+def check_mobo(seed, B, T_x, T_y, D, device, plans):
+    e_tm, tx, ty = mobo_case(seed, B, T_x, T_y, D, device)
+    n = T_y + 1
+    cluster, bp_plan = mb._cluster_plan(B, n, D), mb._bp_plan(B, T_x, n, D)
+    plans.add((cluster, bp_plan[0], D))
+    alpha_ok, alpha_err = live_close(mb.mobo_alpha(e_tm, tx, D),
+                                     mobo_alpha_plain(e_tm, tx, D))
+    beta_ok, beta_err = live_close(mb.mobo_beta(e_tm, tx, ty, D),
+                                   mobo_beta_plain(e_tm, tx, ty, D))
+    bp, durs = mb.mobo_bp(e_tm, tx, ty, D)
+    want_bp, want_durs = mobo_bp_plain(e_tm, tx, ty, D)
+    live = torch.arange(T_x, device=bp.device)[:, None, None] < tx[:, None]
+    bp_ok = (torch.equal(bp * live, want_bp * live)
+             and not bool(bp[~live.expand_as(bp)].any())
+             and torch.equal(durs, want_durs))
+    return [(alpha_ok, f"H7 plan {cluster}: max abs error {alpha_err:.2e}"),
+            (beta_ok, f"H9 plan {cluster}: max abs error {beta_err:.2e}"),
+            (bp_ok, f"H8 plan {bp_plan}: backpointers and durations "
+                    f"{'equal' if bp_ok else 'DIFFER'}")]
+
+
+def mobo_plans_missing(plans) -> list:
+    """What of MOBO_CLUSTER_PLANS, H8's wide form and D = 1 the checked
+    (cluster plan, H8's C, D) triples leave out."""
+    missing = [("H7/H9", p) for p in MOBO_CLUSTER_PLANS
+               if p not in {c for c, _, _ in plans}]
+    if not any(c == 0 for _, c, _ in plans):
+        missing.append(("H8", "wide form"))
+    if not any(d == 1 for _, _, d in plans):
+        missing.append(("H7-H9", "D=1"))
+    return missing
+
+
 def sweep(seeds: int, device: torch.device, max_cells: int | None,
           out=print) -> int:
-    """Run the three grids; return the number of cases checked. Raises
+    """Run the four grids; return the number of cases checked. Raises
     AssertionError at the first case that fails."""
     cases = skipped = 0
     viterbi_plans, fs_plans, skip_fs_plans = set(), set(), set()
+    mobo_plans = set()
 
     def report(ok, label, detail):
         out(f"{'OK  ' if ok else 'FAIL'} {label} {detail}")
@@ -273,6 +366,18 @@ def sweep(seeds: int, device: torch.device, max_cells: int | None,
                         skip_fs_plans)
                     cases += 1
                     report(ok, label, f"{detail} [{note}]")
+    for B, T_x, T_y, D, note in MOBO:
+        shape = f"B={B} T_x={T_x} T_y={T_y} D={D}"
+        if max_cells is not None and B * T_x * (T_y + 1) > max_cells:
+            out(f"SKIP mobo {shape} [{note}] (over --max-cells)")
+            skipped += 1
+            continue
+        for seed in range(seeds):
+            for ok, detail in check_mobo(seed, B, T_x, T_y, D, device,
+                                         mobo_plans):
+                cases += 1
+                report(ok, f"{'mobo':16s} {shape} seed={seed}",
+                       f"{detail} [{note}]")
     if not skipped:
         missing = [("H4", p) for p in sk.SKIP_VITERBI_PLANS
                    if p not in viterbi_plans]
@@ -280,10 +385,12 @@ def sweep(seeds: int, device: torch.device, max_cells: int | None,
                     if p not in fs_plans]
         missing += [("H5/H6", p) for p in fk.SWEEP_PLANS
                     if p not in skip_fs_plans]
+        missing += mobo_plans_missing(mobo_plans)
         if missing:
             raise AssertionError(f"the grids missed the plans {missing}")
         out("plans reached: every SKIP_VITERBI_PLANS entry (H4), every "
-            "SWEEP_PLANS entry (H2/H3 and H5/H6)")
+            "SWEEP_PLANS entry (H2/H3 and H5/H6), H7-H9 in clusters of "
+            "8, 2 and 1 blocks, H8's wide form, D = 1")
     return cases
 
 
@@ -292,7 +399,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-cells", type=int, default=None,
-                    help="skip lattices of more cells (B * T_x or T_s * T_y)")
+                    help="skip lattices of more cells (B * T_x or T_s times "
+                         "T_y; B * T_x * (T_y + 1) for MoBo)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -304,7 +412,7 @@ def main(argv=None) -> int:
     except AssertionError as e:
         print(f"FAILED: {e}")
         return 1
-    print(f"all {cases} loss and skip-lattice cases conform on {device} "
+    print(f"all {cases} loss, skip-lattice and MoBo cases conform on {device} "
           f"({time.perf_counter() - t0:.1f} s)")
     return 0
 

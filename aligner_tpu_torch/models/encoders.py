@@ -6,7 +6,10 @@ A small stack of 1-D convolutions with ReLU between them, projecting into
 transpose to PyTorch's [B, C, T] inside. `nn.Conv1d(padding=k // 2)`
 matches flax's "SAME" padding for the odd kernel sizes used here (3, 1).
 Submodules carry flax's names (`embed`, `convs.conv0`, ...) so that
-`models/convert.py` maps a flax param tree one to one.
+`models/convert.py` maps a flax param tree one to one. The layers run
+through `parallel/tensor.py`, which splits a layer that
+`parallel.shard_params` sharded over the mesh's model axis and makes the
+plain call otherwise.
 
 `dtype` is the computation dtype, as in flax: the parameters stay float32,
 and the forward pass casts the input, the conv weights and biases and the
@@ -22,8 +25,9 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.tensor import conv1d, embedding
 
 
 class ConvStack(nn.Module):
@@ -48,9 +52,7 @@ class ConvStack(nn.Module):
         for i in range(self.n_layers):
             if m is not None:
                 x = x * m
-            conv = getattr(self, f"conv{i}")
-            x = F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt),
-                         padding=conv.padding)
+            x = conv1d(getattr(self, f"conv{i}"), x, dt)
             if i != self.n_layers - 1:
                 x = torch.relu(x)
         if m is not None:
@@ -69,7 +71,7 @@ class TextEncoder(nn.Module):
                                dtype=dtype, device=device)
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor | None = None):
-        x = self.embed(tokens)
+        x = embedding(self.embed, tokens)
         if self.convs.dtype is not None:
             x = x.to(self.convs.dtype)      # nn.Embed(dtype=...) in flax
         return self.convs(x, mask)

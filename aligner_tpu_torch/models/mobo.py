@@ -17,6 +17,8 @@ import torch
 from torch import nn
 
 from ..ops.mobo import mobo_forward, mobo_hard_boundaries
+from ..parallel.data import batch_mean
+from ..parallel.tensor import linear
 from ..utils.masks import sequence_mask
 from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
 
@@ -41,10 +43,11 @@ def masked_recon_loss(soft_alignment: torch.Tensor, decoded: torch.Tensor,
                       mel: torch.Tensor, mask: torch.Tensor,
                       n_mels: int) -> torch.Tensor:
     """Mean squared error of the mel frames rebuilt through the alignment
-    posteriors, over the frames where mask [B, T_y, 1] is 1."""
+    posteriors, over the frames where mask [B, T_y, 1] is 1 in the whole
+    batch (`batch_mean`: summed over the data ranks of a sharded step)."""
     recon = torch.bmm(soft_alignment, decoded)
-    return (torch.sum(mask * (recon - mel) ** 2)
-            / mask.sum().clamp(min=1.0) / n_mels)
+    return batch_mean(torch.sum(mask * (recon - mel) ** 2),
+                      mask.sum()) / n_mels
 
 
 class MoBoAligner(nn.Module):
@@ -99,7 +102,7 @@ class MoBoAligner(nn.Module):
         }
         if cfg.use_recon:
             result["loss_recon"] = masked_recon_loss(
-                out["soft_alignment"], self.mel_decoder(keys), mel,
+                out["soft_alignment"], linear(self.mel_decoder, keys), mel,
                 mel_mask[..., None], cfg.n_mels)
         if compute_hard:
             durs, path = mobo_hard_boundaries(

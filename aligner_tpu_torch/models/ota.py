@@ -43,6 +43,8 @@ from ..ops.mas import mas_path_frame_major
 from ..ops.prior import beta_binomial_log_prior
 from ..ops.skip_dp import (expand_prior_to_states, forward_sum_skip_loss,
                            mas_skip_path_frame_major, split_state_durations)
+from ..parallel.data import batch_mean, rows_mean
+from ..parallel.tensor import linear
 from ..utils.masks import sequence_mask
 from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
 
@@ -222,14 +224,16 @@ class OTAAligner(nn.Module):
             # Over the label axis (tokens + pause class): the pause key
             # decodes to the silence spectrum, which anchors silence
             # frames to the pause class.
-            dec = self.mel_decoder
-            dt = keys.dtype                  # the compute dtype; out float32
-            decoded = F.linear(keys, dec.weight.to(dt),
-                               dec.bias.to(dt)).float()     # [B,L,n_mels]
+            # keys.dtype is the compute dtype; decoded is float32
+            decoded = linear(self.mel_decoder, keys,
+                             keys.dtype).float()            # [B,L,n_mels]
             recon = torch.bmm(torch.exp(log_attn_labels), decoded)
             frame_mask = mel_mask[..., None]
-            loss_recon = (torch.sum(frame_mask * (recon - mel) ** 2)
-                          / frame_mask.sum().clamp(min=1.0) / cfg.n_mels)
+            # The frames of the whole batch normalise it (`batch_mean`:
+            # summed over the data ranks of a sharded step).
+            loss_recon = (batch_mean(torch.sum(frame_mask * (recon - mel)
+                                               ** 2), frame_mask.sum())
+                          / cfg.n_mels)
             if cfg.model_pauses and cfg.pause_silence_anchor:
                 # Silence anchor: pull the pause key's decoded spectrum
                 # toward the batch's silence estimate, each utterance's
@@ -243,7 +247,7 @@ class OTAAligner(nn.Module):
                 lowest = energy.amin(dim=1, keepdim=True)
                 idx = torch.where(energy == lowest, ys, T_y - 1).amin(dim=1)
                 silence = mel[torch.arange(B, device=mel.device), idx]
-                target = silence.mean(dim=0).detach()       # [n_mels]
+                target = rows_mean(silence).detach()        # [n_mels]
                 anchor = torch.mean((decoded[:, T_x] - target) ** 2)
                 loss_recon = loss_recon + cfg.pause_silence_anchor * anchor
 

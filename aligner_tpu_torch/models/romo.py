@@ -25,6 +25,8 @@ from torch import nn
 from ..ops.forward_sum import forward_sum_loss_with_posteriors
 from ..ops.mobo import mobo_forward, mobo_hard_boundaries
 from ..ops.prior import beta_binomial_log_prior
+from ..parallel.data import batch_mean
+from ..parallel.tensor import linear
 from ..utils.masks import sequence_mask
 from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
 from .mobo import masked_recon_loss
@@ -130,7 +132,8 @@ class RoMoAligner(nn.Module):
         # would otherwise swamp metrics while contributing no gradient.
         feasible = mobo["loss"] < 1e14
         per_item = torch.where(feasible, mobo["loss"] / frames, 0.0)
-        loss_refine = per_item.sum() / feasible.sum().clamp(min=1)
+        # over the feasible items of the whole batch (`batch_mean`)
+        loss_refine = batch_mean(per_item.sum(), feasible.sum())
 
         result = {
             "log_attn": log_attn,
@@ -146,7 +149,7 @@ class RoMoAligner(nn.Module):
         }
         if cfg.use_recon:
             result["loss_recon"] = masked_recon_loss(
-                mobo["soft_alignment"], self.mel_decoder(keys), mel,
+                mobo["soft_alignment"], linear(self.mel_decoder, keys), mel,
                 mel_mask[..., None] * feasible[:, None, None], cfg.n_mels)
         if compute_hard:
             durs, path = mobo_hard_boundaries(

@@ -17,13 +17,27 @@ from .mas_kernel import mas_path
 from .mas_reference import MAX_NEG_VAL
 
 
-def mas_path_frame_major(logp: torch.Tensor, t_x, t_y) -> torch.Tensor:
+def check_device_route(implementation: str) -> None:
+    """The frame-major hard paths route by device only: "auto" passes, the
+    JAX package's "lax" and "pallas" raise ValueError as in
+    `maximum_path`, and so does any other name."""
+    if implementation != "auto":
+        raise ValueError(
+            f"unknown implementation {implementation!r}: the port routes "
+            "by device ('auto'); 'lax' and 'pallas' are routes of the JAX "
+            "package")
+
+
+def mas_path_frame_major(logp: torch.Tensor, t_x, t_y, *,
+                         implementation: str = "auto") -> torch.Tensor:
     """Hard MAS path in the aligner's frame-major layout.
 
     logp: [B, T_y, T_x] log-prob lattice (log-attention + prior); returns
     f32 0/1 path [B, T_y, T_x]. The kernel reads the lattice through its
-    strides, so neither side is transposed in memory.
+    strides, so neither side is transposed in memory. implementation:
+    "auto" only (see `check_device_route`).
     """
+    check_device_route(implementation)
     return mas_path(logp.to(torch.float32).transpose(1, 2), t_x, t_y,
                     frame_major=True)
 

@@ -132,43 +132,66 @@ def _valid_items(t_x, t_y, T_x: int, T_y: int):
     return (t_x >= 1) & (t_x <= t_y) & (t_x <= T_x) & (t_y <= T_y)
 
 
-def _forward_bits(value, t_x, t_y, max_neg_val):
-    """Batched forward band sweep. value: f32 [B, T_x, T_y]; returns the
-    decision bits, bool [T_y, B, T_x]."""
-    B, T_x, T_y = value.shape
+def _forward_block(value, t_x, t_y, max_neg_val, y0: int = 0, carry=None):
+    """Batched forward band sweep over a block of frames. value: f32 [B,
+    T_x, T_yl], the lattice's frames y0 .. y0 + T_yl - 1; carry: the
+    cumulative column of frame y0 - 1 (zeros when None, the start at y0 =
+    0); t_x, t_y: the global lengths. The band, the diagonal and the
+    origin test read the global frame. Returns the decision bits, bool
+    [T_yl, B, T_x], and the cumulative column of the block's last frame."""
+    B, T_x, T_yl = value.shape
     xs = torch.arange(T_x, device=value.device)
     tx = t_x[:, None].long()
     ty = t_y[:, None].long()
-    prev = torch.zeros((B, T_x), dtype=torch.float32, device=value.device)
-    bits = torch.empty((T_y, B, T_x), dtype=torch.bool, device=value.device)
-    for y in range(T_y):
-        col = value[:, :, y]
+    prev = (torch.zeros((B, T_x), dtype=torch.float32, device=value.device)
+            if carry is None else carry)
+    bits = torch.empty((T_yl, B, T_x), dtype=torch.bool,
+                       device=value.device)
+    for j in range(T_yl):
+        y = y0 + j
+        col = value[:, :, j]
         prev_shift = torch.cat([prev[:, :1], prev[:, :-1]], dim=1)
         v_cur = torch.where(xs == y, max_neg_val, prev)
         v_prev = torch.where(xs == 0, 0.0 if y == 0 else max_neg_val,
                              prev_shift)
         new = torch.maximum(v_cur, v_prev) + col
         in_band = ((xs >= tx + y - ty) & (xs < tx) & (xs <= y) & (y < ty))
-        bits[y] = (xs > 0) & ((xs == y) | (prev < prev_shift)) & in_band
+        bits[j] = (xs > 0) & ((xs == y) | (prev < prev_shift)) & in_band
         # Out-of-band cells keep the raw value, as the reference's
         # untouched in-place buffer does.
         prev = torch.where(in_band, new, col)
-    return bits
+    return bits, prev
+
+
+def _forward_bits(value, t_x, t_y, max_neg_val):
+    """Batched forward band sweep. value: f32 [B, T_x, T_y]; returns the
+    decision bits, bool [T_y, B, T_x]."""
+    return _forward_block(value, t_x, t_y, max_neg_val)[0]
+
+
+def _backtrack_block(bits, t_x, t_y, T_y: int, y0: int = 0, index=None):
+    """Reverse walk over a block of bits [T_yl, B, T_x], the frames y0 ..
+    y0 + T_yl - 1 of a lattice of T_y frames; index: the token index the
+    walk holds at frame y0 + T_yl (t_x - 1, clamped into the lattice, when
+    None). Items are valid by the global lengths and T_y. Returns the f32
+    0/1 path block [B, T_x, T_yl] and the index at frame y0."""
+    T_yl, B, T_x = bits.shape
+    rows = torch.arange(B, device=bits.device)
+    path = torch.zeros((B, T_x, T_yl), dtype=torch.float32,
+                       device=bits.device)
+    valid = _valid_items(t_x, t_y, T_x, T_y)
+    if index is None:
+        index = (t_x.long() - 1).clamp(min=0, max=max(T_x - 1, 0))
+    for j in range(T_yl - 1, -1, -1):
+        active = valid & (t_y > y0 + j)
+        path[rows, index, j] = active.float()
+        index = index - (active & bits[j, rows, index] & (index > 0)).long()
+    return path, index
 
 
 def _backtrack(bits, t_x, t_y):
     """Reverse walk over the bits; returns the f32 0/1 path [B, T_x, T_y]."""
-    T_y, B, T_x = bits.shape
-    rows = torch.arange(B, device=bits.device)
-    path = torch.zeros((B, T_x, T_y), dtype=torch.float32,
-                       device=bits.device)
-    valid = _valid_items(t_x, t_y, T_x, T_y)
-    index = (t_x.long() - 1).clamp(min=0, max=max(T_x - 1, 0))
-    for y in range(T_y - 1, -1, -1):
-        active = valid & (t_y > y)
-        path[rows, index, y] = active.float()
-        index = index - (active & bits[y, rows, index] & (index > 0)).long()
-    return path
+    return _backtrack_block(bits, t_x, t_y, bits.shape[0])[0]
 
 
 def mas_plain(value: torch.Tensor, t_x, t_y, *,

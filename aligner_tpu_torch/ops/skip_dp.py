@@ -30,6 +30,7 @@ from torch.autograd.function import once_differentiable
 
 from .forward_sum import _masked_logp
 from .forward_sum_kernel import NEG
+from .mas import check_device_route
 from .skip_dp_kernel import (forward_sum_skip_alpha, forward_sum_skip_grad,
                              mas_skip_path)
 from .skip_dp_reference import MAX_NEG_VAL, n_states
@@ -122,11 +123,14 @@ def skip_posteriors(log_probs: torch.Tensor, t_x: torch.Tensor,
 
 
 def mas_skip_path_frame_major(logp: torch.Tensor, t_x, t_y, *,
+                              implementation: str = "auto",
                               max_neg_val: float = MAX_NEG_VAL,
                               enter_cost: float = 0.0) -> torch.Tensor:
     """Hard pause-aware path in frame-major layout: logp [B, T_y, T_s] ->
     f32 0/1 path [B, T_y, T_s]. The kernel reads the lattice through its
-    strides, so neither side is transposed in memory."""
+    strides, so neither side is transposed in memory. implementation:
+    "auto" only (see `ops.mas.check_device_route`)."""
+    check_device_route(implementation)
     return mas_skip_path(logp.to(torch.float32).transpose(1, 2), t_x, t_y,
                          max_neg_val=max_neg_val, enter_cost=enter_cost,
                          frame_major=True)

@@ -8,16 +8,22 @@ from collections.abc import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.prefetch import prefetch_to_device
+from ..parallel.mesh import batch_sharding
 from .checkpoint import (latest_step, restore_checkpoint, save_checkpoint,
                          save_run_config)
 from .step import (create_train_state, make_eval_step, make_lr_schedule,
                    make_train_step)
 
 
+def _quiet(line: str) -> None:
+    """The log of a rank other than global rank 0."""
+
+
 def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
-                  learning_rate: float = 3e-4,
+                  learning_rate: float = 3e-4, mesh=None,
                   bin_start: int = 500, bin_ramp: int = 2000,
                   log_every: int = 50, checkpoint_dir: str | None = None,
                   checkpoint_every: int = 1000, log_fn=print,
@@ -50,6 +56,14 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
     same model/optimizer settings as the original. apply_extra and
     objective: as in train.step.make_train_step. Metrics are read back to
     the host only at log, eval and checkpoint points.
+
+    mesh: a ("data", "model") mesh (`parallel.make_mesh`); every rank of it
+    calls train_aligner with the same arguments, `device` being its own.
+    Every rank draws the same seeded init and the same batch order, steps
+    on its rows of each batch (`train.step`, `prefetch_to_device`), and
+    joins each checkpoint; only global rank 0 calls `log_fn` and writes
+    config.json. The history, the unsharded run's metrics, is every
+    rank's.
     """
     device = torch.device(device)
     batches = list(batches)
@@ -65,7 +79,10 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
                                     schedule=lr_schedule)
         lr_arg = schedule
     state = create_train_state(model, learning_rate=lr_arg,
-                               grad_clip_norm=grad_clip_norm)
+                               grad_clip_norm=grad_clip_norm, mesh=mesh)
+    lead = mesh is None or dist.get_rank() == 0
+    if not lead:
+        log_fn = _quiet
     start_step = 0
     if resume and checkpoint_dir is not None and \
             latest_step(checkpoint_dir) is not None:
@@ -75,16 +92,18 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
     # Write config.json only after a successful restore: a mismatched
     # resume must fail before this run's config can overwrite the
     # checkpoint directory's metadata.
-    if checkpoint_dir is not None and hasattr(model, "config"):
+    if checkpoint_dir is not None and hasattr(model, "config") and lead:
         extra = dict(config_extra or {})
         extra.setdefault("train_seed", seed)
         extra.setdefault("shuffle", shuffle)
         save_run_config(checkpoint_dir, model.config, extra)
-    step_fn = make_train_step(model, bin_start=bin_start, bin_ramp=bin_ramp,
-                              apply_extra=apply_extra, objective=objective)
+    step_fn = make_train_step(model, mesh, bin_start=bin_start,
+                              bin_ramp=bin_ramp, apply_extra=apply_extra,
+                              objective=objective)
     eval_batches = list(eval_batches) if eval_batches else None
-    eval_fn = (make_eval_step(model, bin_start=bin_start, bin_ramp=bin_ramp,
-                              apply_extra=apply_extra, objective=objective)
+    eval_fn = (make_eval_step(model, mesh, bin_start=bin_start,
+                              bin_ramp=bin_ramp, apply_extra=apply_extra,
+                              objective=objective)
                if eval_batches else None)
     if eval_every is None:
         eval_every = log_every * 4
@@ -101,7 +120,9 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
             for j in order:
                 yield batches[j]
 
-    stream = prefetch_to_device(batch_stream(), max(prefetch, 1), device)
+    stream = prefetch_to_device(
+        batch_stream(), max(prefetch, 1), device,
+        sharding=batch_sharding(mesh) if mesh is not None else None)
     i = start_step
     for batch in stream:
         if i >= steps:
@@ -125,8 +146,10 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
         if eval_fn and (i % eval_every == 0 or i == steps):
             vals = []
             for eb in eval_batches:
-                ebt = {k: torch.as_tensor(v).to(device)
-                       for k, v in eb.items()}
+                # a sharded eval step takes the global batch and copies
+                # its rows itself
+                ebt = eb if mesh is not None else {
+                    k: torch.as_tensor(v).to(device) for k, v in eb.items()}
                 vals.append({k: float(v)
                              for k, v in eval_fn(state, ebt).items()})
             val = {f"val_{k}": float(np.mean([v[k] for v in vals]))

@@ -55,18 +55,18 @@ def _top_level(ops: list[dict]) -> list[dict]:
     return out
 
 
-def device_op_durations(trace: str, *, device_only: bool = False
+def device_op_durations(trace_dir: str, *, device_only: bool = False
                         ) -> dict[str, list[float]]:
     """{name: [seconds]} of the device events (kernels, copies, fills) of a
-    `torch.profiler` chrome trace: a file (`.json` or `.json.gz`), or the
-    newest such file under a directory.
+    `torch.profiler` chrome trace: `trace_dir` is a file (`.json` or
+    `.json.gz`), or a directory whose newest such file is read.
 
     A trace with no device events (a session with only CPU activities, as
     on a machine without CUDA) gives its top-level CPU operators instead:
     host time, never to be reported as a device time. With `device_only`
     (a session that asked for CUDA activity) such a trace gives {}.
     """
-    path = _trace_file(trace)
+    path = _trace_file(trace_dir)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         events = [e for e in json.load(f).get("traceEvents", [])

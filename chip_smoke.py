@@ -138,14 +138,32 @@ after 4):
      the conformance sweeps (`aligner_tpu_torch.conformance` and
      `conformance_losses`, one seed) with every plain version refused to
      the wrappers: every case bit-identical or within tolerance, every
-     plan reached, the count of cases logged
+     plan reached (the MoBo grid: H7-H9 in clusters of 8, 2 and 1 blocks,
+     H8's wide form, D = 1), the count of cases logged
+ 24. the parallel path at world size 1 with every plain version refused:
+     a 1x1 ("data", "model") mesh over NCCL from a file store; 4 sharded
+     train steps (`create_train_state(mesh=)`, `make_train_step(mesh=)`:
+     DistributedDataParallel) at the CLI width of OTA with its
+     reconstruction (phase 9's batches), the pause-aware OTA with the
+     pause_bias curriculum and the silence anchor (phase 13's) and MoBo
+     (D = 32), each against the unsharded step from the same init (losses
+     within rtol 2e-4 / atol 1e-5, the largest parameter difference
+     printed; launches H1-H3, H4-H6, H7 and H9); `train_aligner(mesh=)`
+     for 20 steps with a checkpoint restored into an unsharded model,
+     whose next step equals the sharded run's; `mas_sequence_parallel`
+     gated and with 2 microbatches at B=32, 128x1024, bit-identical to H1;
+     the graft twin's forward (`graft_entry.entry`, H1 and H2) against the
+     CPU's plain route; the walls of a sharded and an unsharded step
+     (in the order sharded, unsharded, unsharded, sharded), then both
+     under the profiler: device busy time and the device and host
+     operations the sharded step adds
 
 The second-to-last line is a JSON object listing the kernels (launches by
-path: serving, training, pauses, mobo, two_pass, wav, bf16); the last is
-{"ok": true, "device": {...}}. Any failed check raises, and the script
-exits non-zero without a result; so it does without a CUDA device, or
-without the package beside it. Nothing runs on the CPU in its place; the
-one CPU run is phase 9's reference gradient.
+path: serving, training, pauses, mobo, two_pass, wav, bf16, parallel); the
+last is {"ok": true, "device": {...}}. Any failed check raises, and the
+script exits non-zero without a result; so it does without a CUDA device,
+or without the package beside it. Nothing runs on the CPU in its place; the
+CPU runs are references: phase 9's gradient and phase 24's graft forward.
 """
 from __future__ import annotations
 
@@ -3191,6 +3209,289 @@ def phase_examples_and_conformance(dev):
                 f"a wrapper, in {time.perf_counter() - t0:.1f} s; "
                 f"{lines[-1]}")
 
+PARALLEL_STEPS = 4
+PARALLEL_RTOL, PARALLEL_ATOL = 2e-4, 1e-5   # tests/test_ota_train.py's
+
+
+def pause_curriculum(step_no):
+    """-3 -> 0 over half of TRAIN_STEPS, as phase 13 and demo-pauses."""
+    return {"pause_bias": -3.0 + 3.0 * min(step_no / (TRAIN_STEPS // 2),
+                                           1.0)}
+
+
+def parallel_families():
+    """Phase 24's three families at the CLI width: (name, model class,
+    config, batches, step keywords, the kernels the step launches)."""
+    import aligner_tpu_torch as at
+    width = dict(vocab_size=VOCAB, n_mels=N_MELS, dim=DIM, hidden=HIDDEN,
+                 use_recon=True)
+    batches, _ = train_batches()
+    return [
+        ("OTA", at.OTAAligner, at.OTAConfig(**width), batches,
+         dict(bin_start=0, bin_ramp=1), TOKEN_KERNELS),
+        ("pause OTA", at.OTAAligner,
+         at.OTAConfig(**width, model_pauses=True, pause_silence_anchor=0.5),
+         pause_batches(), dict(bin_start=0, bin_ramp=1,
+                               apply_extra=pause_curriculum), SKIP_KERNELS),
+        ("MoBo", at.MoBoAligner, at.MoBoConfig(**width,
+                                               max_duration=D_MOBO),
+         batches, dict(objective=mobo_objective, apply_extra=no_hard_decode),
+         CLUSTER_KERNELS),
+    ]
+
+
+def require_losses_close(name, got, want):
+    if not np.allclose(got, want, rtol=PARALLEL_RTOL, atol=PARALLEL_ATOL):
+        raise AssertionError(f"{name}: sharded losses {got} vs unsharded "
+                             f"{want}")
+
+
+def max_param_diff(a, b):
+    want = b.state_dict()
+    return max(float((v - want[k]).abs().max())
+               for k, v in a.state_dict().items())
+
+
+def parallel_steps(dev, mesh, launches):
+    """Each family's sharded steps against the unsharded step from the
+    same init; returns the sharded and unsharded OTA step walls."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train import create_train_state, make_train_step
+    walls = None
+    for name, cls, config, batches, kw, kernels in parallel_families():
+        # sharded, unsharded, and unsharded again: the card's own spread
+        models = [cls(config, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+                  for _ in range(3)]
+        states = [create_train_state(models[0], learning_rate=LR, mesh=mesh),
+                  *(create_train_state(m, learning_rate=LR)
+                    for m in models[1:])]
+        steps = [make_train_step(models[0], mesh, **kw),
+                 *(make_train_step(m, **kw) for m in models[1:])]
+        on_card = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                   for b in batches[:PARALLEL_STEPS]]
+        losses = [[], [], []]
+        with plain_versions_refused():
+            torch.cuda.synchronize()
+            at.reset_kernel_launches()
+            for i in range(PARALLEL_STEPS):
+                # the sharded step takes the global numpy batch
+                _, m = steps[0](states[0], batches[i % len(batches)])
+                losses[0].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ran = at.kernel_launches()
+            for j in (1, 2):
+                for i in range(PARALLEL_STEPS):
+                    _, m = steps[j](states[j], on_card[i % len(on_card)])
+                    losses[j].append(float(m["loss"]))
+        require_launches(f"24 {name} sharded steps", ran, PARALLEL_STEPS,
+                         kernels)
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        require_losses_close(name, losses[0], losses[1])
+        log(24, f"{name} at {VOCAB}/{N_MELS}/{DIM}/{HIDDEN} f32, B={B_OTA}: "
+                f"{PARALLEL_STEPS} sharded steps (mesh 1x1, DDP over "
+                f"{torch.distributed.get_backend()}) "
+                f"losses {losses[0]} vs unsharded {losses[1]} within rtol "
+                f"{PARALLEL_RTOL} / atol {PARALLEL_ATOL}; largest parameter "
+                f"difference {max_param_diff(*models[:2]):.3g} (two "
+                f"unsharded runs: {max_param_diff(*models[1:]):.3g}, losses "
+                f"{losses[2]}); launches {ran}")
+        if walls is None:
+            with plain_versions_refused():
+                walls = parallel_overhead(name, steps[:2], states[:2],
+                                          on_card[0])
+    return walls
+
+
+def step_ops(step, state, batch, reps):
+    """Per step of `reps` profiled steps: {key: (device ms, count)} of the
+    device operations and {key: (self host ms, count)} of the host
+    operators."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    device, host = {}, {}
+    for e in prof.key_averages():
+        if e.is_user_annotation:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            device[e.key] = (e.self_device_time_total / 1e3 / reps,
+                             e.count / reps)
+        else:
+            host[e.key] = (e.self_cpu_time_total / 1e3 / reps,
+                           e.count / reps)
+    return device, host
+
+
+def added_ops(sharded, unsharded, top=8):
+    """The operations the sharded step runs more often than the unsharded
+    one, largest added time first, as text; and the added time."""
+    added = sorted(((ms - unsharded.get(k, (0.0, 0))[0],
+                     count - unsharded.get(k, (0.0, 0))[1], k)
+                    for k, (ms, count) in sharded.items()
+                    if count > unsharded.get(k, (0.0, 0))[1]), reverse=True)
+    text = "; ".join(f"{k[:48]} +{ms:.4f} ms +{count:g}"
+                     for ms, count, k in added[:top])
+    return text, sum(ms for ms, _, _ in added)
+
+
+def parallel_overhead(name, steps, states, batch, reps=10):
+    """The sharded and unsharded steps' walls (median of `reps`, in the
+    order sharded, unsharded, unsharded, sharded: each the mean of its
+    two), then both under the profiler: the device busy time and the
+    operations the sharded step adds, on the device and on the host."""
+    order = (0, 1, 1, 0)
+    runs = [step_ms(steps[i], states[i], batch, reps) for i in order]
+    walls = tuple(statistics.mean(w for i, w in zip(order, runs) if i == j)
+                  for j in (0, 1))
+    ops = [step_ops(steps[i], states[i], batch, 5) for i in (0, 1)]
+    busy = [sum(ms for ms, _ in o[0].values()) for o in ops]
+    if not min(busy) > 0:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    n_ops = [sum(c for _, c in o[0].values()) for o in ops]
+    device_added, device_ms = added_ops(ops[0][0], ops[1][0])
+    host_added, host_ms = added_ops(ops[0][1], ops[1][1])
+    log(24, f"{name} step walls (host clock, median of {reps}, order "
+            f"sharded/unsharded/unsharded/sharded: {runs}): sharded "
+            f"{walls[0]:.4f} ms, unsharded {walls[1]:.4f} ms; profiled over "
+            f"5 steps: device busy {busy[0]:.4f} ms in {n_ops[0]:g} "
+            f"operations against {busy[1]:.4f} ms in {n_ops[1]:g}; device "
+            f"operations added by the sharded step ({device_ms:.4f} ms): "
+            f"{device_added}; host operators added ({host_ms:.4f} ms self "
+            f"time): {host_added}")
+    return walls
+
+
+def parallel_loop(dev, mesh, launches):
+    """train_aligner(mesh=) with a checkpoint, restored into an unsharded
+    model: its next step equals the sharded run's."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train import (create_train_state,
+                                         make_train_step,
+                                         restore_checkpoint)
+    from aligner_tpu_torch.train.loop import train_aligner
+    config = at.OTAConfig(vocab_size=VOCAB, n_mels=N_MELS, dim=DIM,
+                          hidden=HIDDEN, use_recon=True)
+    batches, _ = train_batches()
+    model = at.OTAAligner(config, device=dev)
+    with plain_versions_refused(), tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        at.reset_kernel_launches()
+        state, history = train_aligner(
+            model, batches, steps=TRAIN_STEPS, device=dev, learning_rate=LR,
+            mesh=mesh, bin_start=BIN_START, bin_ramp=BIN_RAMP, log_every=1,
+            checkpoint_dir=ckpt, log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        ran = at.kernel_launches()
+        fresh = at.OTAAligner(config, device=dev,
+                              generator=torch.Generator().manual_seed(1))
+        restored = restore_checkpoint(ckpt, create_train_state(
+            fresh, learning_rate=LR))
+        kw = dict(bin_start=BIN_START, bin_ramp=BIN_RAMP)
+        _, sharded = make_train_step(model, mesh, **kw)(state, batches[0])
+        first = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+        _, plain = make_train_step(fresh, **kw)(restored, first)
+    require_launches("24 train_aligner(mesh=)", ran, TRAIN_STEPS)
+    for k, v in ran.items():
+        launches[k] = launches.get(k, 0) + v
+    losses = [history[0]["loss"], history[-1]["loss"]]
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"train_aligner(mesh=): the loss went from "
+                             f"{losses[0]} to {losses[1]}")
+    require_losses_close("the step after the checkpoint",
+                         [float(sharded["loss"])], [float(plain["loss"])])
+    log(24, f"train_aligner(mesh=) {TRAIN_STEPS} steps, loss {losses[0]:.4f}"
+            f" -> {losses[1]:.4f}, launches {ran}; its checkpoint restored "
+            f"into an unsharded model, whose next step's loss "
+            f"{float(plain['loss']):.6f} equals the sharded run's "
+            f"{float(sharded['loss']):.6f}; largest parameter difference "
+            f"after it {max_param_diff(model, fresh):.3g}")
+
+
+def parallel_sequence(dev, mesh):
+    """mas_sequence_parallel, gated and pipelined, against H1."""
+    from aligner_tpu_torch.ops.mas_kernel import mas_path
+    from aligner_tpu_torch.parallel import mas_sequence_parallel
+    value, t_x, t_y = ragged(24, B_MAS, T_X, T_Y)
+    v = torch.from_numpy(value).to(dev)
+    tx, ty = (torch.from_numpy(a).to(dev) for a in (t_x, t_y))
+    want = mas_path(v, tx, ty)
+    for microbatch in (None, 2):
+        t0 = time.perf_counter()
+        got = mas_sequence_parallel(v, tx, ty, mesh, microbatch=microbatch)
+        torch.cuda.synchronize()
+        require_equal(f"mas_sequence_parallel microbatch={microbatch}", got,
+                      want)
+        log(24, f"mas_sequence_parallel B={B_MAS} {T_X}x{T_Y} microbatch="
+                f"{microbatch}: bit-identical to mas_path (H1) in "
+                f"{time.perf_counter() - t0:.3f} s (its block sweeps are "
+                f"plain PyTorch, as the JAX function's are lax scans)")
+
+
+def parallel_graft(dev, launches):
+    """The graft twin's forward on the card (H1, H2) against the CPU's
+    plain route."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.graft_entry import entry
+    fn, args = entry(dev)
+    with plain_versions_refused():
+        torch.cuda.synchronize()
+        at.reset_kernel_launches()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        ran = at.kernel_launches()
+    require_launches("24 graft entry", ran, 1,
+                     ("mas_kernel", "forward_sum_alpha_kernel"))
+    for k, v in ran.items():
+        launches[k] = launches.get(k, 0) + v
+    params, *inputs = args
+    want = fn({k: p.cpu() for k, p in params.items()},
+              *(a.cpu() for a in inputs))
+    for name, g, w in zip(("loss_forward_sum", "loss_bin"), got, want):
+        if not torch.allclose(g.cpu(), w, rtol=FS_RTOL, atol=0):
+            raise AssertionError(f"graft entry {name} {g.item()} vs the "
+                                 f"CPU's {w.item()}")
+    require_equal("graft entry durations", got[2].cpu(), want[2])
+    log(24, f"graft entry fn (OTA forward, B=8 64x256, vocab 100, dim 96) "
+            f"on the card: losses {got[0].item():.6f}, {got[1].item():.6f} "
+            f"within rtol {FS_RTOL} of the CPU plain route's "
+            f"{want[0].item():.6f}, {want[1].item():.6f}, durations "
+            f"equal; launches {ran}")
+
+
+def phase_parallel(dev):
+    """The parallel path at world size 1 (one card): a 1x1 mesh over NCCL
+    from a file store, the sharded train steps of three families against
+    the unsharded ones, train_aligner(mesh=) with a checkpoint restored
+    unsharded, sequence-parallel MAS and the graft twin's forward, every
+    plain version refused; returns the kernel launches of its runs."""
+    from aligner_tpu_torch._build import card_label
+    from aligner_tpu_torch.parallel import make_mesh
+    from aligner_tpu_torch.parallel.mesh import init_process_group
+    launches = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(os.path.join(tmp, "store"), 0, 1, dev.type)
+        try:
+            mesh = make_mesh(1, 1, device_type=dev.type)
+            walls = parallel_steps(dev, mesh, launches)
+            parallel_loop(dev, mesh, launches)
+            with plain_versions_refused():
+                parallel_sequence(dev, mesh)
+            parallel_graft(dev, launches)
+        finally:
+            torch.distributed.destroy_process_group()
+    log(24, f"step walls at B={B_OTA} (host clock, median of 10, card "
+            f"{card_label(0)}): sharded (1x1 mesh, DDP) {walls[0]:.4f} ms, "
+            f"unsharded {walls[1]:.4f} ms; phase 24 took "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3228,6 +3529,7 @@ def main():
                             "config 5": step64})
     phase_cpp_oracle(dev)
     phase_examples_and_conformance(dev)
+    parallel = phase_parallel(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -3257,7 +3559,8 @@ def main():
                    "mobo": mobo.get(name, 0),
                    "two_pass": two_pass.get(name, 0),
                    "wav": wav.get(name, 0),
-                   "bf16": bf16.get(name, 0)}
+                   "bf16": bf16.get(name, 0),
+                   "parallel": parallel.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

@@ -8,7 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from aligner_tpu.native import maximum_path_cpp as jax_maximum_path_cpp
+from aligner_tpu.ops.mas import maximum_path as jax_maximum_path
 from aligner_tpu_torch import OTAAligner, OTAConfig
 from aligner_tpu_torch.native import build, maximum_path_cpp
 from aligner_tpu_torch.ops.mas import maximum_path
@@ -90,6 +93,27 @@ def test_cpp_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="one shape"):
         maximum_path_cpp(np.zeros((2, 3, 4), np.float32),
                          np.ones((2, 3, 5), np.float32))
+
+
+def test_cpp_honours_the_sentinel_as_the_jax_lax_route_does():
+    """A deliberate difference: the port's cpp route passes max_neg_val to
+    the oracle, as JAX's lax and Pallas routes do, where JAX's cpp route
+    fixes it at -1e9. On a lattice near -50 a sentinel of -100 is no
+    longer far below it, so the sentinel decides paths there: the port's
+    cpp equals JAX's lax route, and JAX's cpp differs."""
+    rng = np.random.default_rng(0)
+    value = (rng.standard_normal((2, 6, 12)) * 0.5 - 50).astype(np.float32)
+    mask = lattice_mask(torch.tensor([6, 4]), torch.tensor([12, 9]),
+                        6, 12).numpy()
+    v, m = jnp.asarray(value), jnp.asarray(mask)
+    got = maximum_path(torch.from_numpy(value), torch.from_numpy(mask),
+                       implementation="cpp", max_neg_val=-100.0)
+    want = np.asarray(jax_maximum_path(v, m, implementation="lax",
+                                       max_neg_val=-100.0))
+    np.testing.assert_array_equal(got.numpy(), want)
+    jax_cpp = np.asarray(jax_maximum_path(v, m, implementation="cpp",
+                                          max_neg_val=-100.0))
+    assert not np.array_equal(jax_cpp, want)
 
 
 @pytest.mark.parametrize("name", ["lax", "pallas", "cuda"])

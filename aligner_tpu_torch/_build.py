@@ -206,6 +206,15 @@ def card_label(index: int = 0) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def device_label(device) -> str:
+    """`card_label` of a CUDA device ("cuda", "cuda:1" or its
+    torch.device); the name of any other device."""
+    name = str(device)
+    if name.startswith("cuda"):
+        return card_label(int(name.partition(":")[2] or 0))
+    return name
+
+
 def kernel_launches() -> dict[str, int]:
     """Launch counts by kernel name since the last reset."""
     return dict(LAUNCHES)

@@ -79,7 +79,7 @@ def score(corpus_dir: str, alignments: str, truth_scale: int = 1,
     return out
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("aligner_tpu_torch.score_wav")
     ap.add_argument("corpus_dir")
     ap.add_argument("alignments", help="durations.jsonl from `align`")
@@ -93,7 +93,11 @@ def main(argv=None):
                          "(default 2). Scale with --truth-scale to "
                          "hold the physical tolerance window fixed "
                          "across hop levers")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     print(json.dumps(score(args.corpus_dir, args.alignments,
                            args.truth_scale, args.tolerance)), flush=True)
 

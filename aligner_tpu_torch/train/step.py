@@ -136,11 +136,18 @@ class TrainState:
     def apply_gradients(self) -> None:
         """One update from the gradients on the model's parameters: clip,
         AdamW at schedule(step), then step += 1 (optax reads its count
-        before incrementing it)."""
+        before incrementing it).
+
+        A parameter the objective left without a gradient takes a zero
+        one, as in optax's adamw: its moments and count advance and its
+        weight decays. (A sharded step refuses such an objective first:
+        DDP cannot average a bucket whose hook never fired.)"""
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.grad_clip_norm is not None:
             shards = param_shards(self.model)
-            grads = {n: p.grad for n, p in self.model.named_parameters()
-                     if p.grad is not None}
+            grads = {n: p.grad for n, p in self.model.named_parameters()}
             clip_by_global_norm_(
                 [g for n, g in grads.items() if n not in shards],
                 self.grad_clip_norm,

@@ -157,9 +157,20 @@ after 4):
      (in the order sharded, unsharded, unsharded, sharded), then both
      under the profiler: device busy time and the device and host
      operations the sharded step adds
+ 25. the quality campaigns and a pause diagnostic at a smoke size (30
+     steps, 16-utterance corpora): `wav_rows` on round5's hop128_s0 (and
+     its resume, which trains nothing) and on wav_pauses' seed-0
+     pause-aware row, every plain version refused, each line with its
+     scores and its JAX row; `demo_rows` on one row as a subprocess;
+     `pause_swap_probe --hard` with its lever grid and swap count;
+     launches H1-H3 and H4-H6; then the weight-decay repair: a
+     forward-sum-only step at the CLI width leaves the reconstruction
+     decoder, which takes no gradient, at before * (1 - lr * wd) with
+     zero Adam moments
 
 The second-to-last line is a JSON object listing the kernels (launches by
-path: serving, training, pauses, mobo, two_pass, wav, bf16, parallel); the
+path: serving, training, pauses, mobo, two_pass, wav, bf16, parallel,
+campaigns); the
 last is {"ok": true, "device": {...}}. Any failed check raises, and the
 script exits non-zero without a result; so it does without a CUDA device,
 or without the package beside it. Nothing runs on the CPU in its place; the
@@ -3493,6 +3504,158 @@ def phase_parallel(dev):
     return launches
 
 
+CAMPAIGN_STEPS, CAMPAIGN_UTTERANCES = 30, 16
+WAV_LINE_KEYS = {"group", "run", "seed", "n", "boundary_f1_tol2",
+                 "duration_exact", "duration_mae", "device", "jax",
+                 "f1_diff"}
+DECAY_LR, DECAY_WD = 1e-3, 0.1
+
+
+def captured_lines(fn, *args):
+    """The lines `fn(*args)` prints to standard output."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue().splitlines()
+
+
+def require_line(name, line, keys):
+    missing = keys - set(line)
+    if missing:
+        raise AssertionError(f"{name}: no {sorted(missing)} in {line}")
+
+
+def campaign_wav_rows(dev, root, label):
+    """round5's hop128_s0 through wav_rows' command line (then again: its
+    resume trains nothing) and wav_pauses' seed-0 pause-aware row through
+    its runner; returns both lines."""
+    from aligner_tpu_torch import wav_rows
+    out = os.path.join(root, "wav_rows.jsonl")
+    argv = ["--rows", "hop128_s0", "--steps", str(CAMPAIGN_STEPS),
+            "--utterances", str(CAMPAIGN_UTTERANCES), "--device", str(dev),
+            "--out", out]
+    wav_rows.main(argv)
+    t0 = time.perf_counter()
+    wav_rows.main(argv)
+    resume_s = time.perf_counter() - t0
+    lines = read_records(out)
+    pause = next(r for r in wav_rows.ROWS
+                 if r.key == ("wav_pauses", "wav_pauses_pauseaware", 0))
+    runner = wav_rows.Runner(root, CAMPAIGN_STEPS, CAMPAIGN_UTTERANCES,
+                             str(dev))
+    lines.append(wav_rows.line_of(runner.run(pause),
+                                  wav_rows.jax_row(pause), label))
+    if len(lines) != 2:
+        raise AssertionError(f"wav_rows wrote {len(lines)} lines, resume "
+                             f"included; expected 1 and the pause row")
+    for line, extra in zip(lines, ({"truth_scale", "tolerance"},
+                                   {"pause_precision", "pause_recall"})):
+        require_line(f"wav_rows {line['run']}", line, WAV_LINE_KEYS | extra)
+        if line["n"] != CAMPAIGN_UTTERANCES or line["steps"] != \
+                CAMPAIGN_STEPS or line["device"] != label or \
+                "boundary_f1_tol2" not in line["jax"]:
+            raise AssertionError(f"wav_rows line {line}")
+        log(25, f"wav_rows {line['group']} {line['run']} s{line['seed']}: "
+                f"F1@2 {line['boundary_f1_tol2']} (JAX at 6000 steps "
+                f"{line['jax']['boundary_f1_tol2']}), {line['steps']} steps "
+                f"in {line['train_s']:.2f} s")
+    log(25, f"wav_rows resume with the row in --out: {resume_s:.2f} s, no "
+            f"line written")
+    return lines
+
+
+def campaign_demo_row(dev):
+    """demo_rows' row 2 (demo-romo) at CAMPAIGN_STEPS as a subprocess."""
+    from aligner_tpu_torch import demo_rows
+    (line,) = [json.loads(x) for x in captured_lines(
+        demo_rows.main, ["--rows", "2", "--steps", str(CAMPAIGN_STEPS),
+                         "--device", dev.type])]
+    require_line("demo_rows", line, {"run", "seed", "steps", "result", "jax",
+                                     "f1", "jax_f1", "f1_diff",
+                                     "jax_seed_range", "wall_s", "device"})
+    if line["steps"] != CAMPAIGN_STEPS or line["result"].get("demo") != \
+            "romo" or line["jax"].get("demo") != "romo":
+        raise AssertionError(f"demo_rows line {line}")
+    log(25, f"demo_rows {line['run']!r} at {line['steps']} steps in "
+            f"{line['wall_s']:.1f} s: F1@2 {line['f1']} (JAX at 600 steps "
+            f"{line['jax_f1']}, seed range {line['jax_seed_range']})")
+
+
+def campaign_swap_probe(dev):
+    """pause_swap_probe --hard at CAMPAIGN_STEPS: its lever grid and swap
+    count."""
+    from aligner_tpu_torch import pause_swap_probe
+    lines = captured_lines(pause_swap_probe.main,
+                           ["--steps", str(CAMPAIGN_STEPS), "--hard",
+                            "--device", str(dev)])
+    rec = json.loads(lines[-1])
+    require_line("pause_swap_probe", rec, {"grid", "n_swaps",
+                                           "lattice_prefers_swap", "swaps",
+                                           "device"})
+    if len(rec["grid"]) != 12 or not all(
+            np.isfinite(g["f1_tol2"]) for g in rec["grid"]) or \
+            not any(line.startswith("| +0.0 | 1 |") for line in lines):
+        raise AssertionError(f"pause_swap_probe printed {lines}")
+    log(25, f"pause_swap_probe --hard at {CAMPAIGN_STEPS} steps: "
+            f"{rec['n_swaps']} swaps, the lattice prefers the swapped gap "
+            f"in {rec['lattice_prefers_swap']}; F1@2 at enter cost 0, "
+            f"min_len 1: {rec['grid'][-3]['f1_tol2']:.3f}")
+
+
+def campaign_weight_decay(dev):
+    """A forward-sum-only step at the CLI width: the reconstruction
+    decoder takes no gradient, so it decays as under optax's adamw, with
+    zero moments."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch.train import create_train_state, make_train_step
+    model = at.OTAAligner(at.OTAConfig(vocab_size=VOCAB, n_mels=N_MELS,
+                                       dim=DIM, hidden=HIDDEN,
+                                       use_recon=True), device=dev)
+    decoder = model.mel_decoder.weight.detach().clone()
+    state = create_train_state(model, learning_rate=DECAY_LR,
+                               weight_decay=DECAY_WD)
+    step = make_train_step(model, objective=lambda out, _: (
+        out["loss_forward_sum"].mean(), {}))
+    step(state, dict(zip(("tokens", "mel", "text_lengths", "mel_lengths"),
+                         ota_inputs(dev))))
+    moments = state.optimizer.state[model.mel_decoder.weight]
+    torch.testing.assert_close(model.mel_decoder.weight,
+                               decoder * (1 - DECAY_LR * DECAY_WD),
+                               rtol=2 ** -23, atol=0)
+    if moments["exp_avg"].abs().max().item() != 0 or \
+            moments["exp_avg_sq"].abs().max().item() != 0:
+        raise AssertionError("the decoder's Adam moments moved without a "
+                             "gradient")
+    log(25, f"weight decay without a gradient: the decoder is before * "
+            f"(1 - {DECAY_LR} * {DECAY_WD}) after one forward-sum-only step, "
+            f"its moments 0, its count {int(moments['step'])}")
+
+
+def phase_campaigns(dev):
+    """Phase 25: the quality campaigns and the swap probe at a smoke size
+    on the card, then the weight-decay repair; returns the kernel
+    launches of the in-process runs."""
+    import aligner_tpu_torch as at
+    from aligner_tpu_torch._build import card_label
+    t0 = time.perf_counter()
+    label = card_label(0)
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        at.reset_kernel_launches()
+        with plain_versions_refused():
+            campaign_wav_rows(dev, root, label)
+            campaign_swap_probe(dev)
+        torch.cuda.synchronize()
+        launches = at.kernel_launches()
+    require_launches("campaigns", launches, 1, TOKEN_KERNELS + SKIP_KERNELS)
+    campaign_demo_row(dev)
+    campaign_weight_decay(dev)
+    log(25, f"phase 25 took {time.perf_counter() - t0:.1f} s; launches "
+            f"{launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU instead",
@@ -3530,6 +3693,7 @@ def main():
     phase_cpp_oracle(dev)
     phase_examples_and_conformance(dev)
     parallel = phase_parallel(dev)
+    campaigns = phase_campaigns(dev)
     pallas = "aligner_tpu/ops/"
     kernels = []
     for name, source, replaces, err in [
@@ -3560,7 +3724,8 @@ def main():
                    "two_pass": two_pass.get(name, 0),
                    "wav": wav.get(name, 0),
                    "bf16": bf16.get(name, 0),
-                   "parallel": parallel.get(name, 0)}
+                   "parallel": parallel.get(name, 0),
+                   "campaigns": campaigns.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aligner_tpu_torch/csrc/{source}",

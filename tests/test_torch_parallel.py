@@ -378,33 +378,44 @@ def test_mesh_and_batch_errors_raise(sequenced):
         assert "spans every rank" in res["errors"][4]
 
 
-def test_unused_parameter_skips_the_update_and_the_sharded_step_refuses_it(
+def test_unused_parameter_decays_as_optax_and_the_sharded_step_refuses_it(
         trained):
-    """An objective that leaves the reconstruction decoder out: JAX's
-    adamw still decays it, the port's unsharded step leaves it as it is
-    (ROADMAP Queue 3 item 7), and the sharded step raises ValueError
-    naming it before any update."""
+    """An objective that leaves the reconstruction decoder out: the port's
+    unsharded step gives it a zero gradient, as optax's adamw does, so two
+    steps from the same converted parameters match JAX's on every
+    parameter (the train step's atol 1e-5) and the decoder shrinks by
+    (1 - lr*wd) a step. The sharded step raises ValueError naming it
+    before any update (ROADMAP, deliberate differences)."""
     assert "mel_decoder.weight" in trained[0]["unused"]
+    lr, wd, steps = LR, 0.1, 2
     model = JaxOTA(JaxOTAConfig(**BASE))
     objective = lambda out, _: (out["loss_forward_sum"], {})  # noqa: E731
-    jstate = jax_step.create_train_state(
-        jax.random.PRNGKey(0), model,
-        {k: jnp.asarray(v) for k, v in make_batch(1).items()},
-        learning_rate=LR, weight_decay=0.1)
-    before = np.asarray(jstate.params["mel_decoder"]["kernel"])
+    jb = {k: jnp.asarray(v) for k, v in make_batch(1).items()}
+    jstate = jax_step.create_train_state(jax.random.PRNGKey(0), model, jb,
+                                         learning_rate=lr, weight_decay=wd)
+    port, _, _ = ranks.build("ota", BASE)
+    port.load_state_dict(flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, jstate.params), port.config))
+    decoder = port.mel_decoder.weight.detach().clone()
     jstep = jax_step.make_train_step(model, objective=objective,
                                      donate=False)
-    jstate, _ = jstep(jstate, {k: jnp.asarray(v)
-                               for k, v in make_batch(1).items()})
-    assert not np.array_equal(
-        np.asarray(jstate.params["mel_decoder"]["kernel"]), before)
-    port, _, _ = ranks.build("ota", BASE)
-    decoder = port.mel_decoder.weight.detach().clone()
-    state = create_train_state(port, learning_rate=LR, weight_decay=0.1)
-    make_train_step(port, objective=objective)(state,
-                                               torch_batch(make_batch(1)))
-    assert port.mel_decoder.weight.grad is None
-    assert torch.equal(port.mel_decoder.weight, decoder)
+    state = create_train_state(port, learning_rate=lr, weight_decay=wd)
+    step = make_train_step(port, objective=objective)
+    for _ in range(steps):
+        jstate, _ = jstep(jstate, jb)
+        step(state, torch_batch(make_batch(1)))
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     jstate.params),
+                              port.config)
+    got = port.state_dict()
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key].numpy(), w.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=key)
+    assert not torch.equal(port.mel_decoder.weight, decoder)
+    torch.testing.assert_close(port.mel_decoder.weight,
+                               decoder * (1 - lr * wd) ** steps,
+                               rtol=2 ** -22, atol=0)
 
 
 def test_a_step_refuses_a_state_of_another_mesh(trained):

@@ -22,6 +22,10 @@ line):
   seed0_spread      baseline_s0, then the same corpus with `train --seed`
                     1 and 2, then baseline_s0 once more: the card's own
                     spread on the seed-0 corpus
+  pause_spread      wav_pauses' two models on its seed-0 and seed-1
+                    corpora at `train --seed` 1 and 2: a pause row's own
+                    spread on the card (each line carries the wav_pauses
+                    row of JAX's that it repeats)
 
 The recipe is the campaigns' `--steps 6000 --recon --temperature 0.15
 --bin-start 3000 --bin-ramp 2000 --seed S` at the CLI's default width, on
@@ -49,6 +53,8 @@ from . import score_wav
 from ._build import device_label
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the recipe's steps, and the utterances of its corpus
+STEPS, UTTERANCES = 6000, 64
 RECIPE = ("--recon", "--temperature", "0.15", "--bin-start", "3000",
           "--bin-ramp", "2000")
 PAUSE_CORPUS = ("--pause-prob", "0.4")
@@ -59,7 +65,8 @@ class Row:
     """One run of a campaign. seed: the corpus's, and `train --seed`'s
     unless train_seed is set. reuses: the run (same seed) whose checkpoint
     this row aligns again with `align`, or, without `align` flags, whose
-    alignments it scores again; the row trains nothing itself."""
+    alignments it scores again; the row trains nothing itself. jax_run:
+    the run of JAX's row, where it is not `run`."""
     group: str
     run: str
     seed: int
@@ -70,10 +77,15 @@ class Row:
     align: tuple[str, ...] = ()
     train_seed: int | None = None
     reuses: str | None = None
+    jax_run: str | None = None
 
     @property
     def key(self) -> tuple[str, str, int]:
         return self.group, self.run, self.seed
+
+    @property
+    def jax_name(self) -> str:
+        return self.jax_run or self.run
 
 
 R5 = "scripts/round5_campaign.sh"
@@ -106,6 +118,13 @@ ROWS = (
       for s in (0, 1)
       for name, line, flags in (("pauseaware", 42, ("--model-pauses",)),
                                 ("pauseblind", 43, ()))),
+    *(Row("pause_spread", f"wav_pauses_{name}_init{t}", s,
+          f"{PAUSES}:{line}", corpus=PAUSE_CORPUS, train=flags, train_seed=t,
+          jax_run=f"wav_pauses_{name}")
+      for s in (0, 1)
+      for name, line, flags in (("pauseaware", 42, ("--model-pauses",)),
+                                ("pauseblind", 43, ()))
+      for t in (1, 2)),
     *(Row("enter_cost", f"sweep_ec{c}", 0, f"{SWEEP}:15-19",
           corpus=PAUSE_CORPUS, align=("--pause-enter-cost", c),
           reuses="wav_pauses_pauseaware") for c in ENTER_COSTS),
@@ -122,7 +141,8 @@ JAX_ROWS = {"round5": "docs/r5_campaign_rows.jsonl",
             "wav_pauses": "docs/wav_pause_campaign_tpu.jsonl",
             "wav_pause_levers": "docs/wav_pause_levers_tpu.jsonl",
             "enter_cost": "docs/enter_cost_sweep_tpu.jsonl",
-            "seed0_spread": "docs/PERF.md"}
+            "seed0_spread": "docs/PERF.md",
+            "pause_spread": "docs/wav_pause_campaign_tpu.jsonl"}
 
 
 def _round4_row(path: str) -> dict:
@@ -153,7 +173,7 @@ def jax_row(row: Row) -> dict:
         hits = [r for r in recs if r["enter_cost"] == cost]
     else:
         hits = [r for r in recs
-                if r["run"] == row.run and r["seed"] == row.seed]
+                if r["run"] == row.jax_name and r["seed"] == row.seed]
     if len(hits) != 1:
         raise LookupError(f"{len(hits)} rows for {row.key} in {path}")
     return {k: v for k, v in hits[0].items() if k != "corpus"}
@@ -272,8 +292,8 @@ def main(argv=None):
     ap.add_argument("--rows", default="baseline_s1,phone_s0",
                     help=f"comma-separated groups ({', '.join(GROUPS)}) or "
                          f"run names")
-    ap.add_argument("--steps", type=int, default=6000)
-    ap.add_argument("--utterances", type=int, default=64,
+    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--utterances", type=int, default=UTTERANCES,
                     help="utterances a corpus (make_wav_corpus.py)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,

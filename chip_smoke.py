@@ -106,12 +106,12 @@ after 4):
      of `mas_path(fuse=False)` at B=256, 128x1024, launch counts per
      route, each path equal to the fused kernel's; then
      `python -m aligner_tpu_torch bench-mas --route all --device cuda` at
-     B=32 and B=256 as subprocesses, one gated JSON line per route
+     B=32 as a subprocess, one gated JSON line per route
  20. wav pipeline with every plain version patched to raise: two seeded
      64-utterance corpora from scripts/make_wav_corpus.py (characters; phone
      transcripts with pauses), the card's log-mel of four utterances
-     against the CPU's at atol 1e-4, then `train` and `align` (with
-     TextGrids) through the CLI at its default width for OTA (`--recon
+     against the CPU's at atol 1e-4, then `train` (150 steps) and `align`
+     (with TextGrids) through the CLI at its default width for OTA (`--recon
      --temperature 0.15`), OTA `--model-pauses` and RoMo (both `--tokenizer
      phone`): launch counts of each run (H1-H3; H4-H6; H2, H3, H7-H9), one
      record and one TextGrid per utterance, frames conserved (RoMo's rough
@@ -159,9 +159,10 @@ after 4):
      operations the sharded step adds
  25. the quality campaigns and a pause diagnostic at a smoke size (30
      steps, 16-utterance corpora): `wav_rows` on round5's hop128_s0 (and
-     its resume, which trains nothing) and on wav_pauses' seed-0
-     pause-aware row, every plain version refused, each line with its
-     scores and its JAX row; `demo_rows` on one row as a subprocess;
+     its resume, which trains nothing), on wav_pauses' seed-0 pause-aware
+     row and on the pause_spread group (its plan: eight rows, fields
+     checked), every plain version refused, each line with its scores and
+     its JAX row; `demo_rows` on one row as a subprocess;
      `pause_swap_probe --hard` with its lever grid and swap count;
      launches H1-H3 and H4-H6; then the weight-decay repair: a
      forward-sum-only step at the CLI width leaves the reconstruction
@@ -2709,13 +2710,15 @@ def phase_two_pass_path(dev):
             f"the numpy oracle on items 2, 3, {B_SERVE // 2}, "
             f"{B_SERVE - 1}; each frame below t_y on exactly one token; "
             f"invalid items all zero")
-    for batch in (B_MAS, B_SERVE):
-        run_bench_mas(dev, batch)
+    # bench-mas at B_MAS only: at B_SERVE its host oracle gate alone took
+    # about 70 s of the script's limit, and phase 7 times every route's
+    # kernels at B_SERVE on the card.
+    run_bench_mas(dev, B_MAS)
     return launches
 
 
 
-WAV_UTTERANCES, WAV_STEPS = 64, 300       # phase 20's corpora and runs
+WAV_UTTERANCES, WAV_STEPS = 64, 150       # phase 20's corpora and runs
 WAV_MODEL_FLAGS = ()                      # the CLI's default width
 WAV_RUNS = (
     ("ota", "char", ["--recon", "--temperature", "0.15"], TOKEN_KERNELS),
@@ -3565,6 +3568,33 @@ def campaign_wav_rows(dev, root, label):
     return lines
 
 
+def campaign_pause_spread(dev, root, label):
+    """wav_rows' pause_spread group through its command line: its plan
+    (eight rows, two pause corpora, train seeds 1 and 2) at CAMPAIGN_STEPS;
+    only the lines' fields are checked."""
+    from aligner_tpu_torch import wav_rows
+    want = wav_rows.select("pause_spread")
+    out = os.path.join(root, "pause_spread.jsonl")
+    wav_rows.main(["--rows", "pause_spread", "--steps", str(CAMPAIGN_STEPS),
+                   "--utterances", str(CAMPAIGN_UTTERANCES), "--device",
+                   str(dev), "--out", out])
+    lines = read_records(out)
+    if [(x["run"], x["seed"], x["train_seed"]) for x in lines] != \
+            [(r.run, r.seed, r.train_seed) for r in want]:
+        raise AssertionError(f"pause_spread lines {lines}")
+    for line, row in zip(lines, want):
+        require_line(f"pause_spread {line['run']}", line, WAV_LINE_KEYS)
+        if line["n"] != CAMPAIGN_UTTERANCES or line["steps"] != \
+                CAMPAIGN_STEPS or line["device"] != label or \
+                line["jax"]["run"] != row.jax_run or \
+                ("pause_precision" in line) != ("--model-pauses" in row.train):
+            raise AssertionError(f"pause_spread line {line}")
+    log(25, "pause_spread: " + "; ".join(
+        f"{x['run']} s{x['seed']} F1@2 {x['boundary_f1_tol2']}"
+        for x in lines) + f" ({CAMPAIGN_STEPS} steps)")
+    return lines
+
+
 def campaign_demo_row(dev):
     """demo_rows' row 2 (demo-romo) at CAMPAIGN_STEPS as a subprocess."""
     from aligner_tpu_torch import demo_rows
@@ -3633,9 +3663,9 @@ def campaign_weight_decay(dev):
 
 
 def phase_campaigns(dev):
-    """Phase 25: the quality campaigns and the swap probe at a smoke size
-    on the card, then the weight-decay repair; returns the kernel
-    launches of the in-process runs."""
+    """Phase 25: the quality campaigns (pause_spread's plan included) and
+    the swap probe at a smoke size on the card, then the weight-decay
+    repair; returns the kernel launches of the in-process runs."""
     import aligner_tpu_torch as at
     from aligner_tpu_torch._build import card_label
     t0 = time.perf_counter()
@@ -3645,6 +3675,7 @@ def phase_campaigns(dev):
         at.reset_kernel_launches()
         with plain_versions_refused():
             campaign_wav_rows(dev, root, label)
+            campaign_pause_spread(dev, root, label)
             campaign_swap_probe(dev)
         torch.cuda.synchronize()
         launches = at.kernel_launches()

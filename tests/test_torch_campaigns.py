@@ -211,13 +211,41 @@ def test_seed0_spread_is_baseline_s0_at_three_train_seeds_and_again():
         0.905, 2.18)
 
 
+def test_pause_spread_is_wav_pauses_at_train_seeds_1_and_2():
+    """Each pause_spread row repeats a wav_pauses row (corpus, train
+    flags, cite) at train seed 1 or 2, under a name of its own, and
+    carries that row's JAX line."""
+    got = [r for r in wav_rows.ROWS if r.group == "pause_spread"]
+    source = rows_of("wav_pauses")
+    assert [(r.run, r.seed, r.train_seed) for r in got] == [
+        (f"wav_pauses_{name}_init{t}", s, t)
+        for s in (0, 1) for name in ("pauseaware", "pauseblind")
+        for t in (1, 2)]
+    for r in got:
+        src = source[(r.jax_run, r.seed)]
+        assert (r.corpus, r.train, r.score, r.cite) == (
+            src.corpus, src.train, src.score, src.cite)
+        assert (r.align, r.reuses) == ((), None)
+        assert wav_rows.jax_row(r) == wav_rows.jax_row(src)
+    assert len({r.key for r in wav_rows.ROWS}) == len(wav_rows.ROWS)
+    plan = wav_rows.plan(wav_rows.select("pause_spread"), set())
+    assert [(r.run, r.seed) for r, w in plan if w] == [
+        (r.run, r.seed) for r in got]
+    aware = wav_rows.jax_row(got[0])
+    assert (aware["run"], aware["seed"], aware["boundary_f1_tol2"]) == (
+        "wav_pauses_pauseaware", 0, 0.746)
+    blind = wav_rows.jax_row(got[-1])
+    assert (blind["run"], blind["seed"], blind["boundary_f1_tol2"]) == (
+        "wav_pauses_pauseblind", 1, 0.656)
+
+
 @pytest.mark.parametrize("row", wav_rows.ROWS, ids=lambda r: "-".join(
     map(str, r.key)))
 def test_every_wav_row_finds_its_jax_row(row):
     want = wav_rows.jax_row(row)
     assert "boundary_f1_tol2" in want
     if row.group not in ("seed0_spread", "enter_cost"):
-        assert (want["run"], want["seed"]) == (row.run, row.seed)
+        assert (want["run"], want["seed"]) == (row.jax_name, row.seed)
     flags = dict(zip(row.score[::2], row.score[1::2]))
     assert want.get("truth_scale", 1) == int(flags.get("--truth-scale", 1))
     assert want.get("tolerance", 2) == int(flags.get("--tolerance", 2))

@@ -45,6 +45,7 @@ from ..ops.skip_dp import (expand_prior_to_states, forward_sum_skip_loss,
                            mas_skip_path_frame_major, split_state_durations)
 from ..parallel.data import batch_mean, rows_mean
 from ..parallel.tensor import linear
+from ..utils import tracing
 from ..utils.masks import sequence_mask
 from .encoders import MelEncoder, TextEncoder, reset_encoder_parameters
 
@@ -137,119 +138,134 @@ class OTAAligner(nn.Module):
         config.pause_bias, so that a training schedule can anneal the
         pause occupancy cost per step (`apply_extra` of
         train.step.make_train_step); it is never read back to the host."""
+        with tracing.span("model.forward"):
+            return self._forward(tokens, mel, text_lengths, mel_lengths,
+                                 pause_bias)
+
+    def _forward(self, tokens, mel, text_lengths, mel_lengths, pause_bias):
         cfg = self.config
         B, T_x = tokens.shape
         T_y = mel.shape[1]
-        mel_mask = sequence_mask(mel_lengths, T_y)
-        text_mask = sequence_mask(text_lengths, T_x)
-        keys = self.text_encoder(tokens, text_mask)
-        if cfg.model_pauses:
-            # label axis = T_x tokens + 1 pause class
-            keys = torch.cat([keys, self.pause_key.to(keys.dtype)
-                              .expand(B, 1, cfg.dim)], dim=1)
-            text_mask = torch.cat([text_mask, text_mask.new_ones((B, 1))],
-                                  dim=1)
-        queries = self.mel_encoder(mel, mel_mask)
+        with tracing.span("model.encode"):
+            mel_mask = sequence_mask(mel_lengths, T_y)
+            text_mask = sequence_mask(text_lengths, T_x)
+            keys = self.text_encoder(tokens, text_mask)
+            if cfg.model_pauses:
+                # label axis = T_x tokens + 1 pause class
+                keys = torch.cat([keys, self.pause_key.to(keys.dtype)
+                                  .expand(B, 1, cfg.dim)], dim=1)
+                text_mask = torch.cat([text_mask, text_mask.new_ones((B, 1))],
+                                      dim=1)
+            queries = self.mel_encoder(mel, mel_mask)
 
-        # Pairwise squared L2 via one batched matmul:
-        # |q|^2 - 2 q.k + |k|^2, energies = -temperature * dist^2, all in
-        # float32. In bfloat16 the product's inputs are bfloat16 and it
-        # accumulates in float32, as jnp.einsum(preferred_element_type=
-        # float32) does: the product of two bfloat16 values is exact in
-        # float32, so upcasting the inputs gives that on both devices (TF32
-        # is off on the card). `torch.bmm(..., out_dtype=torch.float32)`
-        # would read bfloat16 directly, but exists on CUDA only, so the
-        # CPU tests could not hold it; it is left for a performance change.
-        qf = queries.float()
-        kf = keys.float()
-        q2 = torch.sum(qf * qf, dim=-1, keepdim=True)            # [B,T_y,1]
-        k2 = torch.sum(kf * kf, dim=-1)[:, None, :]              # [B,1,T_x]
-        qk = torch.bmm(qf, kf.transpose(1, 2))                   # [B,T_y,T_x]
-        energies = -cfg.temperature * (q2 - 2.0 * qk + k2)
-        energies = torch.where(text_mask[:, None, :] > 0, energies, -1e9)
-        if cfg.model_pauses and (pause_bias is not None or cfg.pause_bias):
-            bias = torch.as_tensor(
-                cfg.pause_bias if pause_bias is None else pause_bias,
-                dtype=energies.dtype, device=energies.device)
-            energies = energies + F.pad(bias.reshape(1), (T_x, 0))
-        # Softmax over labels (tokens and, with pauses, the one pause
-        # class): the pause competes once per frame however many lattice
-        # states replicate it.
-        log_attn_labels = torch.log_softmax(energies, dim=-1)
-        log_attn = log_attn_labels
+        with tracing.span("model.lattice"):
+            # Pairwise squared L2 via one batched matmul:
+            # |q|^2 - 2 q.k + |k|^2, energies = -temperature * dist^2, all in
+            # float32. In bfloat16 the product's inputs are bfloat16 and it
+            # accumulates in float32, as jnp.einsum(preferred_element_type=
+            # float32) does: the product of two bfloat16 values is exact in
+            # float32, so upcasting the inputs gives that on both devices (TF32
+            # is off on the card). `torch.bmm(..., out_dtype=torch.float32)`
+            # would read bfloat16 directly, but exists on CUDA only, so the
+            # CPU tests could not hold it; it is left for a performance change.
+            qf = queries.float()
+            kf = keys.float()
+            q2 = torch.sum(qf * qf, dim=-1, keepdim=True)        # [B,T_y,1]
+            k2 = torch.sum(kf * kf, dim=-1)[:, None, :]          # [B,1,T_x]
+            qk = torch.bmm(qf, kf.transpose(1, 2))             # [B,T_y,T_x]
+            energies = -cfg.temperature * (q2 - 2.0 * qk + k2)
+            energies = torch.where(text_mask[:, None, :] > 0, energies, -1e9)
+            if cfg.model_pauses and (pause_bias is not None or cfg.pause_bias):
+                bias = torch.as_tensor(
+                    cfg.pause_bias if pause_bias is None else pause_bias,
+                    dtype=energies.dtype, device=energies.device)
+                energies = energies + F.pad(bias.reshape(1), (T_x, 0))
+            # Softmax over labels (tokens and, with pauses, the one pause
+            # class): the pause competes once per frame however many lattice
+            # states replicate it.
+            log_attn_labels = torch.log_softmax(energies, dim=-1)
+            log_attn = log_attn_labels
 
-        if cfg.model_pauses:
-            # Spread the label log-probs onto the state axis: token j to
-            # state 2j+1, the pause class to every even state (its
-            # gradient sums over the copies).
-            log_attn = log_attn_labels.new_empty((B, T_y, 2 * T_x + 1))
-            log_attn[:, :, 1::2] = log_attn_labels[:, :, :T_x]
-            log_attn[:, :, 0::2] = log_attn_labels[:, :, T_x:]
+            if cfg.model_pauses:
+                # Spread the label log-probs onto the state axis: token j to
+                # state 2j+1, the pause class to every even state (its
+                # gradient sums over the copies).
+                log_attn = log_attn_labels.new_empty((B, T_y, 2 * T_x + 1))
+                log_attn[:, :, 1::2] = log_attn_labels[:, :, :T_x]
+                log_attn[:, :, 0::2] = log_attn_labels[:, :, T_x:]
 
         logp = log_attn
         if cfg.use_prior:
-            prior = beta_binomial_log_prior(
-                text_lengths, mel_lengths, T_x, T_y, cfg.prior_omega)
-            if cfg.model_pauses:
-                prior = expand_prior_to_states(prior, text_lengths,
-                                               mode=cfg.pause_prior)
-            logp = logp + prior
+            with tracing.span("model.prior"):
+                prior = beta_binomial_log_prior(
+                    text_lengths, mel_lengths, T_x, T_y, cfg.prior_omega)
+                if cfg.model_pauses:
+                    prior = expand_prior_to_states(prior, text_lengths,
+                                                   mode=cfg.pause_prior)
+                logp = logp + prior
 
+        with tracing.span("model.forward_sum"):
+            if cfg.model_pauses:
+                fs = forward_sum_skip_loss(logp, text_lengths, mel_lengths,
+                                           enter_cost=cfg.pause_enter_cost)
+            else:
+                fs = forward_sum_loss(logp, text_lengths, mel_lengths)
         # The hard Viterbi binarisation runs on the prior-augmented
         # lattice, outside the autograd graph.
-        if cfg.model_pauses:
-            fs = forward_sum_skip_loss(logp, text_lengths, mel_lengths,
-                                       enter_cost=cfg.pause_enter_cost)
-            hard = mas_skip_path_frame_major(
-                logp.detach(), text_lengths, mel_lengths,
-                enter_cost=cfg.pause_enter_cost)
-        else:
-            fs = forward_sum_loss(logp, text_lengths, mel_lengths)
-            hard = mas_path_frame_major(logp.detach(), text_lengths,
-                                        mel_lengths)
-        frames = mel_lengths.clamp(min=1)
-        loss_forward_sum = torch.mean(fs / frames)
+        with tracing.span("model.mas"):
+            if cfg.model_pauses:
+                hard = mas_skip_path_frame_major(
+                    logp.detach(), text_lengths, mel_lengths,
+                    enter_cost=cfg.pause_enter_cost)
+            else:
+                hard = mas_path_frame_major(logp.detach(), text_lengths,
+                                            mel_lengths)
 
-        # Binarisation loss: cross-entropy of the soft attention against
-        # the hard path, per real frame.
-        ce = -torch.sum(hard * log_attn, dim=(1, 2))
-        loss_bin = torch.mean(ce / frames)
-        durations = torch.sum(hard, dim=1)          # [B, T_x] or [B, T_s]
-        pause_durations = None
-        if cfg.model_pauses:
-            durations, pause_durations = split_state_durations(durations)
+        with tracing.span("model.losses"):
+            frames = mel_lengths.clamp(min=1)
+            loss_forward_sum = torch.mean(fs / frames)
 
-        loss_recon = torch.zeros((), device=mel.device)
-        if cfg.use_recon:
-            # Over the label axis (tokens + pause class): the pause key
-            # decodes to the silence spectrum, which anchors silence
-            # frames to the pause class.
-            # keys.dtype is the compute dtype; decoded is float32
-            decoded = linear(self.mel_decoder, keys,
-                             keys.dtype).float()            # [B,L,n_mels]
-            recon = torch.bmm(torch.exp(log_attn_labels), decoded)
-            frame_mask = mel_mask[..., None]
-            # The frames of the whole batch normalise it (`batch_mean`:
-            # summed over the data ranks of a sharded step).
-            loss_recon = (batch_mean(torch.sum(frame_mask * (recon - mel)
-                                               ** 2), frame_mask.sum())
-                          / cfg.n_mels)
-            if cfg.model_pauses and cfg.pause_silence_anchor:
-                # Silence anchor: pull the pause key's decoded spectrum
-                # toward the batch's silence estimate, each utterance's
-                # minimum-energy valid frame (no labels needed).
-                energy = torch.where(mel_mask > 0, mel.mean(dim=-1),
-                                     torch.inf)
-                # The first frame that attains the minimum, as
-                # jnp.argmin picks it; torch.argmin promises no order
-                # among ties on a CUDA device.
-                ys = torch.arange(T_y, device=mel.device)
-                lowest = energy.amin(dim=1, keepdim=True)
-                idx = torch.where(energy == lowest, ys, T_y - 1).amin(dim=1)
-                silence = mel[torch.arange(B, device=mel.device), idx]
-                target = rows_mean(silence).detach()        # [n_mels]
-                anchor = torch.mean((decoded[:, T_x] - target) ** 2)
-                loss_recon = loss_recon + cfg.pause_silence_anchor * anchor
+            # Binarisation loss: cross-entropy of the soft attention against
+            # the hard path, per real frame.
+            ce = -torch.sum(hard * log_attn, dim=(1, 2))
+            loss_bin = torch.mean(ce / frames)
+            durations = torch.sum(hard, dim=1)          # [B, T_x] or [B, T_s]
+            pause_durations = None
+            if cfg.model_pauses:
+                durations, pause_durations = split_state_durations(durations)
+
+            loss_recon = torch.zeros((), device=mel.device)
+            if cfg.use_recon:
+                # Over the label axis (tokens + pause class): the pause key
+                # decodes to the silence spectrum, which anchors silence
+                # frames to the pause class.
+                # keys.dtype is the compute dtype; decoded is float32
+                decoded = linear(self.mel_decoder, keys,
+                                 keys.dtype).float()            # [B,L,n_mels]
+                recon = torch.bmm(torch.exp(log_attn_labels), decoded)
+                frame_mask = mel_mask[..., None]
+                # The frames of the whole batch normalise it (`batch_mean`:
+                # summed over the data ranks of a sharded step).
+                loss_recon = (batch_mean(torch.sum(frame_mask * (recon - mel)
+                                                   ** 2), frame_mask.sum())
+                              / cfg.n_mels)
+                if cfg.model_pauses and cfg.pause_silence_anchor:
+                    # Silence anchor: pull the pause key's decoded spectrum
+                    # toward the batch's silence estimate, each utterance's
+                    # minimum-energy valid frame (no labels needed).
+                    energy = torch.where(mel_mask > 0, mel.mean(dim=-1),
+                                         torch.inf)
+                    # The first frame that attains the minimum, as
+                    # jnp.argmin picks it; torch.argmin promises no order
+                    # among ties on a CUDA device.
+                    ys = torch.arange(T_y, device=mel.device)
+                    lowest = energy.amin(dim=1, keepdim=True)
+                    idx = torch.where(energy == lowest, ys,
+                                      T_y - 1).amin(dim=1)
+                    silence = mel[torch.arange(B, device=mel.device), idx]
+                    target = rows_mean(silence).detach()        # [n_mels]
+                    anchor = torch.mean((decoded[:, T_x] - target) ** 2)
+                    loss_recon = loss_recon + cfg.pause_silence_anchor * anchor
 
         out = {
             "loss_recon": loss_recon,

@@ -12,6 +12,7 @@ import torch.distributed as dist
 
 from ..data.prefetch import prefetch_to_device
 from ..parallel.mesh import batch_sharding
+from ..utils import tracing
 from .checkpoint import (latest_step, restore_checkpoint, save_checkpoint,
                          save_run_config)
 from .step import (create_train_state, make_eval_step, make_lr_schedule,
@@ -123,43 +124,51 @@ def train_aligner(model, batches: Iterable[dict], *, steps: int, device,
     stream = prefetch_to_device(
         batch_stream(), max(prefetch, 1), device,
         sharding=batch_sharding(mesh) if mesh is not None else None)
-    i = start_step
-    for batch in stream:
-        if i >= steps:
-            break
-        state, metrics = step_fn(state, batch)
-        i += 1
-        if i % log_every == 0 or i == steps:
+
+    def log_step(i: int, metrics: dict) -> None:
+        with tracing.span("train.log"):
             rec = {k: float(v) for k, v in metrics.items()}
-            # The update recorded at step i was applied with
-            # schedule(i - 1).
-            rec.update(step=i, wall_s=time.time() - t0,
-                       lr=(float(schedule(i - 1)) if schedule is not None
-                           else learning_rate))
-            history.append(rec)
-            detail = "  ".join(
-                f"{k.removeprefix('loss_')} {v:8.4f}"
-                for k, v in rec.items()
-                if k not in ("loss", "step", "wall_s", "lr"))
-            log_fn(f"step {i:6d}  loss {rec['loss']:8.4f}  "
-                   f"{detail}  [{rec['wall_s']:.1f}s]")
-        if eval_fn and (i % eval_every == 0 or i == steps):
-            vals = []
-            for eb in eval_batches:
-                # a sharded eval step takes the global batch and copies
-                # its rows itself
-                ebt = eb if mesh is not None else {
-                    k: torch.as_tensor(v).to(device) for k, v in eb.items()}
-                vals.append({k: float(v)
-                             for k, v in eval_fn(state, ebt).items()})
-            val = {f"val_{k}": float(np.mean([v[k] for v in vals]))
-                   for k in vals[0]}
-            val["step"] = i
-            history.append(val)
-            log_fn(f"step {i:6d}  val_loss {val['val_loss']:8.4f}  "
-                   f"val_fs {val.get('val_loss_forward_sum', 0.0):8.4f}")
-        if checkpoint_dir and i % checkpoint_every == 0:
-            save_checkpoint(checkpoint_dir, state)
+        # The update recorded at step i was applied with schedule(i - 1).
+        rec.update(step=i, wall_s=time.time() - t0,
+                   lr=(float(schedule(i - 1)) if schedule is not None
+                       else learning_rate))
+        history.append(rec)
+        detail = "  ".join(
+            f"{k.removeprefix('loss_')} {v:8.4f}"
+            for k, v in rec.items()
+            if k not in ("loss", "step", "wall_s", "lr"))
+        log_fn(f"step {i:6d}  loss {rec['loss']:8.4f}  "
+               f"{detail}  [{rec['wall_s']:.1f}s]")
+
+    def validate(i: int, state) -> None:
+        vals = []
+        for eb in eval_batches:
+            # a sharded eval step takes the global batch and copies its
+            # rows itself
+            ebt = eb if mesh is not None else {
+                k: torch.as_tensor(v).to(device) for k, v in eb.items()}
+            vals.append({k: float(v)
+                         for k, v in eval_fn(state, ebt).items()})
+        val = {f"val_{k}": float(np.mean([v[k] for v in vals]))
+               for k in vals[0]}
+        val["step"] = i
+        history.append(val)
+        log_fn(f"step {i:6d}  val_loss {val['val_loss']:8.4f}  "
+               f"val_fs {val.get('val_loss_forward_sum', 0.0):8.4f}")
+
+    i = start_step
+    while i < steps:
+        with tracing.span("train.step", step=i):
+            with tracing.span("input.next"):
+                batch = next(stream)
+            state, metrics = step_fn(state, batch)
+            i += 1
+            if i % log_every == 0 or i == steps:
+                log_step(i, metrics)
+            if eval_fn and (i % eval_every == 0 or i == steps):
+                validate(i, state)
+            if checkpoint_dir and i % checkpoint_every == 0:
+                save_checkpoint(checkpoint_dir, state)
     if checkpoint_dir:
         save_checkpoint(checkpoint_dir, state)
     return state, history

@@ -34,6 +34,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..parallel.data import batch_group
 from ..parallel.mesh import batch_sharding, shard_params
 from ..parallel.tensor import param_shards
+from ..utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,12 +266,16 @@ def _check_state(model, mesh, state: TrainState) -> None:
                          "mesh (or None) to create_train_state and the step")
 
 
-def _forward(model, state: TrainState, batch: dict, apply_extra,
+def _forward(model, state: TrainState, batch: dict, apply_extra, obj,
              module=None):
+    """The model's forward and the objective at the state's step; the
+    callback `apply_extra` runs first, outside the `step.forward` span."""
     extra_kw = apply_extra(state.step) if apply_extra else {}
-    return (module or model)(batch["tokens"], batch["mel"],
-                             batch["text_lengths"], batch["mel_lengths"],
-                             **extra_kw)
+    with tracing.span("step.forward"):
+        out = (module or model)(batch["tokens"], batch["mel"],
+                                batch["text_lengths"], batch["mel_lengths"],
+                                **extra_kw)
+        return obj(out, state.step)
 
 
 def _require_gradients(model: nn.Module) -> None:
@@ -312,13 +317,15 @@ def make_train_step(model: nn.Module, mesh: DeviceMesh | None = None, *,
             batch = _local_batch(batch, mesh,
                                  next(model.parameters()).device)
         with batch_group(group):
-            out = _forward(model, state, batch, apply_extra, state.ddp)
-            loss, extra = obj(out, state.step)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            _require_gradients(model)
-        state.apply_gradients()
+            loss, extra = _forward(model, state, batch, apply_extra, obj,
+                                   state.ddp)
+        with tracing.span("step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                _require_gradients(model)
+        with tracing.span("step.update"):
+            state.apply_gradients()
         return state, _metrics(loss, extra, group)
 
     return step
@@ -342,8 +349,7 @@ def make_eval_step(model: nn.Module, mesh: DeviceMesh | None = None, *,
             batch = _local_batch(batch, mesh,
                                  next(model.parameters()).device)
         with batch_group(group):
-            out = _forward(model, state, batch, apply_extra)
-            loss, extra = obj(out, state.step)
+            loss, extra = _forward(model, state, batch, apply_extra, obj)
         return _metrics(loss, extra, group)
 
     return evaluate

@@ -9,7 +9,11 @@ Submodules carry flax's names (`embed`, `convs.conv0`, ...) so that
 `models/convert.py` maps a flax param tree one to one. The layers run
 through `parallel/tensor.py`, which splits a layer that
 `parallel.shard_params` sharded over the mesh's model axis and makes the
-plain call otherwise.
+plain call otherwise. A convolution's call is `ops/conv.py`'s: in float32
+on the card while a graph is built (training), cuDNN's forward and a
+backward of cuBLAS float32 GEMMs, since cuDNN's own float32 backward runs
+FFT algorithms at the text encoder's shapes; in bfloat16, under `no_grad`
+(`align`, serving) and on the CPU, `F.conv1d` forward and backward.
 
 `dtype` is the computation dtype, as in flax: the parameters stay float32,
 and the forward pass casts the input, the conv weights and biases and the

@@ -20,8 +20,12 @@ weight's gradient is the rows of the unsharded gradient.
 the ranks in its backward instead: with the loss computed alike on every
 model rank, that would count each gradient once per rank.
 
-Without a shard each helper makes the one call the models made before, so
-an unsharded model computes exactly what it did.
+Without a shard each helper makes the one call of an unsharded model.
+`conv1d`'s call is `ops/conv.py`'s: in float32 on the card while a graph
+is built, cuDNN's forward and a backward of cuBLAS GEMMs; in bfloat16,
+under `no_grad` and on the CPU, `F.conv1d` forward and backward. A
+sharded layer makes the same call on its rank's output channels, without
+the bias.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import conv as conv_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +110,9 @@ def conv1d(conv: nn.Conv1d, x: torch.Tensor,
     weight, bias = conv.weight.to(dtype), conv.bias.to(dtype)
     shard = model_shard(conv)
     if shard is None:
-        return F.conv1d(x, weight, bias, padding=conv.padding)
-    y = F.conv1d(_CopyToModel.apply(x, shard.group), weight,
-                 padding=conv.padding)
+        return conv_ops.conv1d(x, weight, bias, conv.padding)
+    y = conv_ops.conv1d(_CopyToModel.apply(x, shard.group), weight,
+                        padding=conv.padding)
     return _GatherFromModel.apply(y, shard, 1) + bias[:, None]
 
 
